@@ -1,0 +1,419 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  It builds every CUDA kernel of the port
+from the checkout's sources, holds each kernel against its plain PyTorch
+version (and the NumPy oracle) at the shapes the main path gives it, then
+drives the port's main path — the CLI, SAM + FASTA -> VCF with the CUDA
+PairHMM — on the chrM fixture (byte-identical to the golden VCF) and on a
+2 Mb contig at 30x (byte-identical to the port's native C++ engine).
+Every phase prints one JSON line and raises on failure.  The last lines are
+the card's name and power limit (nvidia-smi), one JSON object per kernel
+with its times, launches and bound, and ``{"ok": true, "device": ...}``.
+
+It needs one card and exits non-zero, printing no result, without one.
+It imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import resource
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
+# tensor cores (an FMA counted as two operations) and HBM bandwidth, used
+# for each kernel's least time.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+PPE_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_ppe.cu"
+PPE_REPLACES = {
+    1: "gatk_hc_tpu/ops/pairhmm_pallas.py:176",
+    2: "gatk_hc_tpu/ops/pairhmm_pallas.py:306",
+    4: "gatk_hc_tpu/ops/pairhmm_pallas.py:588",
+    8: "gatk_hc_tpu/ops/pairhmm_pallas.py:589",
+}
+# the kernel line reports the shape most main-path groups run at
+# (151 bp reads -> r_pad 160, 415 bp windows -> c_pad 448)
+REPORT_SHAPE = (160, 448)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def phase_card():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    from gatk_hc_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    for name in _kernels.KERNELS:
+        _kernels.load(name)
+    build_s = time.perf_counter() - t0
+    emit({
+        "phase": "card", "nvidia_smi": smi,
+        "name": torch.cuda.get_device_name(0),
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "kernels": list(_kernels.KERNELS), "build_s": round(build_s, 3),
+        "compiled": {name: compiler_report(_kernels, name)
+                     for name in _kernels.KERNELS},
+    })
+    return smi
+
+
+def compiler_report(_kernels, name):
+    """Registers, stack and local memory per kernel instantiation, and the
+    f32 multiply / add / fused multiply-add instructions in its machine
+    code, read with cuobjdump from the library just built.  Raises on any
+    FFMA: the exactness rules forbid mul+add contraction."""
+    import re
+
+    lib = _kernels.library_path(name)
+    tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+
+    def short(mangled):  # ppe_forward_kernel<4> -> "nr4"
+        m = re.search(r"ILi(\d+)E", mangled)
+        return f"nr{m.group(1)}" if m else mangled
+
+    out, fn = {}, None
+    for line in dump("--dump-resource-usage").splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m:
+            fn = out.setdefault(short(m.group(1)), {})
+            continue
+        for key in ("REG", "STACK", "LOCAL"):
+            m = re.search(rf"\b{key}:(\d+)", line)
+            if m and fn is not None:
+                fn[key.lower()] = int(m.group(1))
+    fn = None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = out.setdefault(short(m.group(1)), {})
+            continue
+        m = re.search(r"\b(FMUL|FADD|FFMA)\b", line)
+        if m and fn is not None:
+            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+    if any(info.get("FFMA") for info in out.values()):
+        raise AssertionError(f"{name}: fused multiply-add in SASS: {out}")
+    return out
+
+
+def make_pairs(rng, B, r_pad, c_pad):
+    """Seeded main-path-like pairs: 3/4 reads drawn from their haplotype
+    with ~1% substitutions and a few N bases, 1/4 unrelated pairs (which
+    underflow); qualities from the fixture's range (Q28-40, some Q5-20);
+    rlen and clen drawn inside the pads.  -> ASCII arrays + lengths."""
+    import numpy as np
+
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    clen = rng.integers(max(1, c_pad - 64), c_pad + 1, B).astype(np.int32)
+    rlen = rng.integers(max(1, r_pad - 63), r_pad + 1, B).astype(np.int32)
+    unrelated = rng.random(B) < 0.25
+    clen[unrelated] = rng.integers(1, c_pad + 1, int(unrelated.sum()))
+    rlen[unrelated] = rng.integers(1, r_pad + 1, int(unrelated.sum()))
+    hap = acgtn[rng.integers(0, 4, (B, c_pad))]
+    hap[rng.random((B, c_pad)) < 0.002] = ord("N")
+    start = rng.integers(0, np.maximum(clen - rlen, 0) + 1)
+    cols = np.minimum(start[:, None] + np.arange(r_pad)[None, :], c_pad - 1)
+    read = np.take_along_axis(hap, cols, axis=1)
+    sub = rng.random((B, r_pad)) < 0.01
+    read[sub] = acgtn[rng.integers(0, 4, int(sub.sum()))]
+    read[rng.random((B, r_pad)) < 0.002] = ord("N")
+    read[unrelated] = acgtn[rng.integers(0, 5, (int(unrelated.sum()), r_pad))]
+    qual = rng.integers(28, 41, (B, r_pad))
+    low = rng.random((B, r_pad)) < 0.03
+    qual[low] = rng.integers(5, 21, int(low.sum()))
+    qual = (qual + 33).astype(np.uint8)
+    col = np.arange(r_pad)[None, :]
+    read[col >= rlen[:, None]] = 0
+    qual[col >= rlen[:, None]] = 0
+    hap[np.arange(c_pad)[None, :] >= clen[:, None]] = 0
+    return read, qual, rlen, hap, clen
+
+
+def ppe_bound(rlen, clen, c_pad):
+    """The least time of one ppe launch on these pairs, in ms, and what
+    sets it.  Operations: the f32 work the function needs, 8 multiplies +
+    4 adds per true cell, 2 adds per column of row rlen (its M and X summed
+    in column order) and 1 add per pair; over the f32 peak.  Bytes: each
+    pair's rlen rows of the three read planes, clen hap masks, rlen, clen
+    and init_y read once, its result written once; over HBM bandwidth."""
+    import numpy as np
+
+    rl = np.asarray(rlen, np.int64)
+    cl = np.minimum(np.asarray(clen, np.int64), c_pad)
+    B = rl.size
+    ops = 12 * int(rl @ cl) + 2 * int(cl.sum()) + B
+    nbytes = 4 * (3 * int(rl.sum()) + int(cl.sum()) + 3 * B) + 4 * B
+    bound_s = {"bytes": nbytes / PEAK_HBM_BYTES,
+               "operations": ops / PEAK_F32_FLOPS}
+    by = max(bound_s, key=bound_s.get)
+    return 1e3 * bound_s[by], by
+
+
+def kernel_inputs(read, qual, rlen, hap, clen, device):
+    """Pair-minor ppe inputs on ``device`` (the runner's plane tables)."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.ops.pairhmm_torch import plane_tables
+    from gatk_hc_tpu_torch.utils.quality import (
+        BASE_TABLE, INITIAL_CONSTANT_F32, PH2PR_F32,
+    )
+
+    mask, omq_bits, q3_bits = plane_tables(BASE_TABLE, PH2PR_F32)
+    rows = np.stack([mask[read], omq_bits[qual], q3_bits[qual]])  # (3, B, R)
+    init_y = (INITIAL_CONSTANT_F32 / clen.astype(np.float32)).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (
+        to(rows.transpose(2, 0, 1)), to(mask[hap].T), to(rlen), to(clen),
+        to(init_y),
+    )
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median ms of ``fn`` on the current stream, CUDA events, warmed up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_kernels():
+    """Every NR instance against the plain version (bit for bit, all
+    pairs) and the NumPy oracle (bit for bit, 64 sampled pairs) at every
+    (r_pad, c_pad) of the default buckets, B = the runner's group size."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
+    from gatk_hc_tpu_torch.ops.pairhmm_oracle import pairhmm_prob
+    from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
+
+    B = TorchPairHMMRunner.GROUP_PAIRS
+    trans = pt.transition_constants(DEFAULT_CONFIG.gop_char,
+                                    DEFAULT_CONFIG.gcp_char)
+    rng = np.random.default_rng(20261016)
+    results = {}
+    for r_pad in DEFAULT_CONFIG.read_pad_buckets:
+        for c_pad in DEFAULT_CONFIG.hap_pad_buckets:
+            read, qual, rlen, hap, clen = make_pairs(rng, B, r_pad, c_pad)
+            args = kernel_inputs(read, qual, rlen, hap, clen, "cuda")
+            # the plain version has nothing to warm up: time its one call
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            plain = pt.ppe_forward_plain(*args, trans)
+            b.record()
+            b.synchronize()
+            plain_ms = a.elapsed_time(b)
+            sample = rng.choice(B, 64, replace=False)
+            want = np.array([
+                np.float32(pairhmm_prob(
+                    read[k, : rlen[k]], qual[k, : rlen[k]], hap[k, : clen[k]],
+                    DEFAULT_CONFIG.gop_char, DEFAULT_CONFIG.gcp_char,
+                    np.float32, ftz=True,
+                ))
+                for k in sample
+            ], np.float32)
+            true_cells = int(rlen.astype(np.int64) @ clen.astype(np.int64))
+            bound_ms, bound_by = ppe_bound(rlen, clen, c_pad)
+            for nr in (1, 2, 4, 8):
+                assert pt.select_rows(nr, r_pad) == nr
+                got = pt.ppe_forward(*args, trans, nr)
+                torch.cuda.synchronize()
+                same = torch.equal(got.view(torch.int32),
+                                   plain.view(torch.int32))
+                err = float((got - plain).abs().max())
+                got_np = got.cpu().numpy()
+                oracle_same = bool(np.array_equal(
+                    got_np[sample].view(np.int32), want.view(np.int32)
+                ))
+                ms = time_ms(lambda: pt.ppe_forward(*args, trans, nr), 10)
+                row = {
+                    "phase": "kernel", "name": f"ppe{nr}", "B": B,
+                    "r_pad": r_pad, "c_pad": c_pad,
+                    "bit_equal_plain": same, "bit_equal_oracle_64": oracle_same,
+                    "max_abs_err": err, "underflowed_frac": round(
+                        float((got_np == 0).mean()), 4),
+                    "ms": round(ms, 4), "plain_ms": round(plain_ms, 3),
+                    "true_cells_per_s": true_cells / (ms / 1e3),
+                    "padded_cells_per_s": B * r_pad * c_pad / (ms / 1e3),
+                    "bound_ms": round(bound_ms, 4),
+                    "bound_by": bound_by, "library_ms": None,
+                }
+                emit(row)
+                if not same or not oracle_same:
+                    raise AssertionError(
+                        f"ppe{nr} at r_pad={r_pad} c_pad={c_pad}: kernel "
+                        f"differs from plain ({same}) or oracle ({oracle_same})"
+                    )
+                results[(nr, r_pad, c_pad)] = row
+    return results
+
+
+def run_cli(argv):
+    """One in-process CLI run (the entry point a user calls) -> its
+    --stats JSON, with the PairHMM kernels' launch counts of this run."""
+    from gatk_hc_tpu_torch import cli
+    from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
+
+    pt.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv + ["--stats"])
+    launches = dict(pt.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"cli {argv} exited {rc}")
+    stats = json.loads(out.getvalue().splitlines()[0])
+    stats["launches"] = launches
+    return stats
+
+
+def phase_chrm(tmp):
+    """chrM through the CLI on the card: byte-identical to the golden VCF,
+    once per NR instance (--ppe-rows), each run's launches counted."""
+    fixtures = os.path.join(ROOT, "fixtures")
+    with open(os.path.join(fixtures, "chrM.golden.vcf"), "rb") as handle:
+        golden = handle.read()
+    launches = {}
+    for nr in (4, 1, 2, 8):
+        out = os.path.join(tmp, f"chrM.ppe{nr}.vcf")
+        argv = ["-I", os.path.join(fixtures, "chrM.sam"),
+                "-R", os.path.join(fixtures, "chrM.fa"), "-O", out]
+        if nr != 4:  # 4 is the default
+            argv += ["--ppe-rows", str(nr)]
+        stats = run_cli(argv)
+        with open(out, "rb") as handle:
+            identical = handle.read() == golden
+        emit({"phase": "chrM", "ppe_rows": nr, "golden_identical": identical,
+              "regions": stats["regions"], "variants": stats["variants"],
+              "launches": stats["launches"], "wall_s": stats["wall_s"],
+              "device_stages_ms": stats.get("device_stages_ms")})
+        if not identical or stats["launches"][nr] == 0:
+            raise AssertionError(f"chrM with ppe{nr}: golden {identical}, "
+                                 f"launches {stats['launches']}")
+        if any(n for k, n in stats["launches"].items() if k != nr):
+            raise AssertionError(f"unexpected NR launched: {stats['launches']}")
+        launches[nr] = stats["launches"][nr]
+    return launches
+
+
+def phase_contig(tmp):
+    """2 Mb contig at 30x: cuda vs the port's native engine, byte-identical."""
+    import torch
+
+    from gatk_hc_tpu_torch.tools import make_fixture
+
+    fix = os.path.join(tmp, "chr20sim")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_fixture.main([fix, "--length", "2000000", "--name", "chr20sim"])
+    gen_s = time.perf_counter() - t0
+    sam = os.path.join(fix, "chr20sim.sam")
+    fasta = os.path.join(fix, "chr20sim.fa")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_vcf = os.path.join(tmp, "chr20sim.cuda.vcf")
+    cuda = run_cli(["-I", sam, "-R", fasta, "-O", cuda_vcf])
+    max_mem = torch.cuda.max_memory_allocated()
+    native_vcf = os.path.join(tmp, "chr20sim.native.vcf")
+    native = run_cli(["-I", sam, "-R", fasta, "-O", native_vcf,
+                      "--pairhmm", "native"])
+    with open(cuda_vcf, "rb") as a, open(native_vcf, "rb") as b:
+        identical = a.read() == b.read()
+    row = {
+        "phase": "contig_2mb", "fixture_gen_s": round(gen_s, 1),
+        "identical_to_native": identical,
+        "regions": cuda["regions"], "variants": cuda["variants"],
+        "cell_updates": cuda["cell_updates"], "wall_s": cuda["wall_s"],
+        "cells_per_s": cuda["cells_per_s"], "stages": cuda["stages"],
+        "device_stages_ms": cuda.get("device_stages_ms"),
+        "launches": cuda["launches"],
+        "dispatch_profile": cuda.get("dispatch_profile"),
+        "peak_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+        "cuda_max_memory_allocated_mb": round(max_mem / 2**20, 1),
+        "native_wall_s": native["wall_s"], "native_stages": native["stages"],
+    }
+    emit(row)
+    if not identical or cuda["launches"][4] == 0:
+        raise AssertionError(f"2 Mb contig: identical {identical}, "
+                             f"launches {cuda['launches']}")
+    return cuda["launches"]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "gatk_hc_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    smi = phase_card()
+    kernels = phase_kernels()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        chrm_launches = phase_chrm(tmp)
+        contig_launches = phase_contig(tmp)
+    lines = []
+    for nr in (1, 2, 4, 8):
+        rows = [v for (k, _r, _c), v in kernels.items() if k == nr]
+        rep = kernels[(nr,) + REPORT_SHAPE]
+        lines.append({
+            "name": f"ppe{nr}", "route": "cuda", "source": PPE_SOURCE,
+            "replaces": PPE_REPLACES[nr],
+            # the main path's run of this instance: the default (NR=4)
+            # drives the 2 Mb contig; --ppe-rows N drives chrM
+            "launches": contig_launches[nr] or chrm_launches[nr],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": None,
+            "shape": {"B": rep["B"], "r_pad": rep["r_pad"],
+                      "c_pad": rep["c_pad"]},
+        })
+    print(smi, flush=True)
+    emit({"kernels": lines})
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,276 @@
+"""Command-line interface, mirroring the reference binary's flags
+(src/main.cpp:6-16): -I/--input SAM, -O/--output VCF, -R/--reference FASTA.
+
+    python -m gatk_hc_tpu_torch.cli -I reads.sam -R ref.fa -O out.vcf
+
+Extensions over the reference: engine and device selection, deterministic
+downsampling, interval restriction (-L), verbosity, stage timing stats,
+checkpoint/resume manifests, and assembly-graph dumps.  The PairHMM runs on
+the CUDA card by default (--pairhmm cuda --device cuda); --device cpu runs
+the same runner through the kernel's plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+from .config import DEFAULT_CONFIG
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="gatk-hc-torch",
+        description="HaplotypeCaller on PyTorch + CUDA: SAM + FASTA -> VCF",
+    )
+    parser.add_argument("-I", "--input", required=True, help="SAM file containing reads")
+    parser.add_argument("-O", "--output", required=True, help="output VCF path")
+    parser.add_argument("-R", "--reference", required=True, help="reference FASTA")
+    parser.add_argument(
+        "-L", "--intervals", default=None,
+        help="restrict calling to contig:begin-end (0-based half-open)",
+    )
+    parser.add_argument(
+        "--pairhmm",
+        default=DEFAULT_CONFIG.pairhmm_engine,
+        choices=("cuda", "native", "python"),
+        help="PairHMM engine (default: %(default)s; cuda = the hand-written "
+        "CUDA kernel through the batched runner, native = the C++ host "
+        "engine, python = the NumPy oracle — bit-exact either way)",
+    )
+    parser.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"),
+        help="where --pairhmm cuda runs: the card (default) or the CPU "
+        "through the kernel's plain PyTorch version",
+    )
+    parser.add_argument(
+        "--assembler",
+        default=DEFAULT_CONFIG.assembler_engine,
+        choices=("native", "python"),
+    )
+    parser.add_argument(
+        "--genotyper",
+        default=DEFAULT_CONFIG.genotyper_engine,
+        choices=("host",),
+        help="genotype reductions: exact host NumPy f64",
+    )
+    parser.add_argument(
+        "--downsample",
+        default=DEFAULT_CONFIG.downsample_mode,
+        choices=("first", "seeded"),
+        help="one read per start position: deterministic rule",
+    )
+    parser.add_argument(
+        "--data",
+        default=DEFAULT_CONFIG.data_engine,
+        choices=("auto", "native", "python"),
+        help="SAM parse + window prep: columnar C++ or per-record Python",
+    )
+    parser.add_argument(
+        "--host-threads", type=int, default=DEFAULT_CONFIG.host_threads,
+        help="host pipeline threads (0 = one per CPU, 1 = inline)",
+    )
+    parser.add_argument(
+        "--stream-contigs", action="store_true",
+        help="bounded-memory data path: parse one contig slice at a time "
+        "and free its columns when its regions finish (WGS-scale inputs)",
+    )
+    parser.add_argument(
+        "--ppe-rows", type=int, default=DEFAULT_CONFIG.ppe_rows,
+        choices=(1, 2, 4, 8), help="rows one thread sweeps together in the "
+        "ppe kernel (every value gives the same result)",
+    )
+    parser.add_argument("--seed", type=int, default=DEFAULT_CONFIG.downsample_seed)
+    parser.add_argument("--region-size", type=int, default=DEFAULT_CONFIG.region_size)
+    parser.add_argument("--padding-size", type=int, default=DEFAULT_CONFIG.padding_size)
+    parser.add_argument("--stats", action="store_true", help="print run stats as JSON")
+    parser.add_argument(
+        "-v", "--verbose", action="count", default=0,
+        help="-v: reference-style progress lines; -vv: debug",
+    )
+    parser.add_argument(
+        "--manifest", default=None,
+        help="region-manifest JSONL for checkpoint/resume",
+    )
+    parser.add_argument(
+        "--dump-graph", type=int, default=None, metavar="REGION",
+        help="write graph.dot for the given region index and exit",
+    )
+    return parser
+
+
+def _dump_graph(args, cfg) -> int:
+    from .io.fasta import read_fasta
+    from .io.sam import load_reads_by_start, read_sam
+    from .models.assembler import build_debug_graph, graph_to_dot
+    from .models.caller import iter_windows
+    from .models.downsampler import downsample_window
+    from .models.read_clipper import hard_clip_reads
+    from .models.read_filters import filter_reads
+
+    fasta = read_fasta(args.reference)
+    buckets = load_reads_by_start(read_sam(args.input), len(fasta.seq))
+    for index, (origin, padded) in enumerate(
+        iter_windows(fasta.name, len(fasta.seq), cfg)
+    ):
+        if index != args.dump_graph:
+            continue
+        reads = downsample_window(buckets, padded.begin, padded.end, cfg)
+        reads = hard_clip_reads(filter_reads(reads, cfg), padded, cfg)
+        graph = build_debug_graph(
+            reads, fasta.seq[padded.begin : padded.end], cfg.initial_kmer_size, cfg
+        )
+        with open(args.output, "w") as handle:
+            handle.write(graph_to_dot(graph))
+        print(f"wrote assembly graph for region {index} to {args.output}")
+        return 0
+    print(f"error: region {args.dump_graph} not found", file=sys.stderr)
+    return 2
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG,
+        pairhmm_engine=args.pairhmm,
+        assembler_engine=args.assembler,
+        data_engine=args.data,
+        genotyper_engine=args.genotyper,
+        downsample_mode=args.downsample,
+        downsample_seed=args.seed,
+        region_size=args.region_size,
+        padding_size=args.padding_size,
+        host_threads=args.host_threads,
+        stream_contigs=args.stream_contigs,
+        ppe_rows=args.ppe_rows,
+    )
+    if args.dump_graph is not None:
+        return _dump_graph(args, cfg)
+
+    from .models.caller import call, call_batched, iter_windows
+    from .utils.logging import HCLogger, RunCounters, StageTimers, maybe_profile
+
+    logger = HCLogger(verbosity=args.verbose)
+    timers = StageTimers()
+    counters = RunCounters()
+
+    region_filter = None
+    if args.intervals:
+        from .io.fasta import read_all_fasta
+        from .utils.interval import Interval
+
+        target = Interval.parse(args.intervals)
+        clamped = Interval(target.contig, target.begin, min(target.end, 2**62))
+        # region ids are GLOBAL across contigs (contig-major, FASTA order),
+        # exactly like call_batched's all_windows(); origin.overlaps checks
+        # the contig name, so only the target contig's windows match
+        wanted = set()
+        index = 0
+        for record in read_all_fasta(args.reference):
+            for origin, _padded in iter_windows(record.name, len(record.seq), cfg):
+                if origin.overlaps(clamped):
+                    wanted.add(index)
+                index += 1
+        region_filter = lambda i: i in wanted
+
+    manifest = None
+    if args.manifest:
+        from .parallel.checkpoint import RegionManifest
+
+        manifest = RegionManifest(args.manifest)
+
+    start = time.perf_counter()
+    runner = None
+    try:
+        if cfg.pairhmm_engine in ("cuda", "native"):
+            # both run the cross-region batched pipeline (same grouping +
+            # columnar data path); "python" stays on the simple per-region
+            # oracle pipeline
+            if cfg.pairhmm_engine == "cuda":
+                from .ops.runner import TorchPairHMMRunner
+
+                runner = TorchPairHMMRunner(cfg, device=args.device)
+            with maybe_profile():
+                results = call_batched(
+                    args.input, args.reference, args.output, cfg,
+                    region_filter=region_filter, logger=logger,
+                    timers=timers, counters=counters, manifest=manifest,
+                    runner=runner,
+                )
+        else:
+            results = call(
+                args.input, args.reference, args.output, cfg,
+                region_filter=region_filter,
+            )
+    except FileNotFoundError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    elapsed = time.perf_counter() - start
+    n_variants = sum(len(r.variants) for r in results)
+    cells = sum(r.cell_updates for r in results)
+    if args.stats:
+        stats = {
+            "regions": len(results),
+            "variants": n_variants,
+            "cell_updates": cells,
+            "wall_s": round(elapsed, 3),
+            "cells_per_s": round(cells / elapsed) if elapsed else 0,
+            "engine": cfg.pairhmm_engine,
+            "stages": timers.summary(),
+        }
+        try:
+            import resource
+
+            stats["peak_rss_mb"] = (
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024
+            )
+        except Exception:
+            pass
+        # cold-start attribution: interpreter + imports (process age minus
+        # the CLI wall)
+        from .utils.logging import process_age_s
+
+        age = process_age_s()
+        if age == age:  # not NaN
+            stats["process_age_s"] = round(age, 3)
+            stats["pre_main_s"] = round(age - elapsed, 3)
+        if runner is not None:
+            # launches per shipping path: one runner holds every count, so
+            # nothing is merged (and no key can overwrite another's count)
+            if runner.dispatch_counts:
+                stats["dispatch_profile"] = dict(runner.dispatch_counts)
+            from .ops.pairhmm_torch import LAUNCHES
+
+            stats["kernel_launches"] = {
+                f"ppe{nr}": n for nr, n in LAUNCHES.items() if n
+            }
+            # per-group device-stage medians (ms): host pack, H2D, pair
+            # gather, kernel, D2H (per submit) and host finalize
+            stats["device_stages_ms"] = runner.stage_medians()
+            if runner.device.type == "cuda":
+                import torch
+
+                stats["cuda_max_memory_allocated_mb"] = round(
+                    torch.cuda.max_memory_allocated(runner.device) / 2**20, 1
+                )
+        try:
+            from . import native
+
+            profile = native.profile_read()
+            if profile["regions_assembled"]:
+                stats["host_profile"] = {
+                    k: round(v, 4) if isinstance(v, float) else v
+                    for k, v in profile.items()
+                }
+        except Exception:
+            pass
+        print(json.dumps(stats))
+    print(f"HaplotypeCaller done. {n_variants} variants in {elapsed:.2f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""Typed configuration for the PyTorch/CUDA HaplotypeCaller engine.
+
+The reference implementation scatters its tuning constants across headers as
+``static constexpr`` values (see the reference's src/haplotypecaller/
+haplotypecaller.hpp:112-113, assembler/assembler.hpp:15-18,
+assembler/graph_wrapper.hpp:22-24, pairhmm/pairhmm.hpp:29-36,
+genotyper/genotyper.hpp:15-19, smithwaterman/smithwaterman.hpp:21-24).
+Here they live in one dataclass so every component reads the same source of
+truth and tests can vary them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SWParameters:
+    """Affine-gap Smith-Waterman scoring parameters.
+
+    Mirrors hc::SWAligner::SWParameters (smithwaterman.hpp:12-24).
+    """
+
+    w_match: int
+    w_mismatch: int
+    w_open: int
+    w_extend: int
+
+
+# The four presets from smithwaterman.hpp:21-24. The assembly path uses
+# NEW_SW_PARAMETERS (the default argument of IntelSWAligner::align,
+# intel_smithwaterman.hpp:31).
+ORIGINAL_DEFAULT_SW = SWParameters(3, -1, -4, -3)
+STANDARD_NGS_SW = SWParameters(25, -50, -110, -6)
+NEW_SW_PARAMETERS = SWParameters(200, -150, -260, -11)
+ALIGNMENT_TO_BEST_HAPLOTYPE_SW = SWParameters(10, -15, -30, -5)
+
+
+@dataclasses.dataclass(frozen=True)
+class HCConfig:
+    """All pipeline constants, defaulting to the reference's behavior."""
+
+    # --- Region walker (haplotypecaller.hpp:112-113) ---
+    region_size: int = 245
+    padding_size: int = 85
+
+    # --- Downsampling -----------------------------------------------------
+    # The reference picks ONE random read per alignment-start position with a
+    # std::random_device-seeded mt19937 (haplotypecaller.hpp:44-50), which is
+    # nondeterministic run-to-run.  We support:
+    #   "first"  - deterministically keep the first read parsed at each start
+    #   "seeded" - mt19937-style choice from a fixed seed (per position)
+    downsample_mode: str = "first"
+    downsample_seed: int = 0
+
+    # --- Read filters (utils/read_filter.hpp) ---
+    min_mapping_quality: int = 20          # read_filter.hpp:10
+    min_read_length_after_trimming: int = 10  # read_filter.hpp:29
+
+    # --- Assembler (assembler.hpp:15-18, graph_wrapper.hpp:22-24) ---
+    initial_kmer_size: int = 25
+    kmer_size_iteration_increase: int = 10
+    max_kmer_iterations: int = 9
+    max_unique_kmers_to_discard: int = 2000
+    max_num_haplotypes: int = 128          # GraphWrapper::DEFAULT_NUM_PATHS
+    prune_factor: int = 2                  # GraphWrapper::PRUNE_FACTOR
+    min_base_quality_to_use: int = 10 + 33  # ASCII '+'-ish: Q10 + '!' offset
+
+    # --- Smith-Waterman ---
+    sw_params: SWParameters = NEW_SW_PARAMETERS
+    sw_max_mismatches_all_match: int = 2   # MINIMAL_MISMATCH_TO_TOLERANCE
+
+    # --- PairHMM ---
+    # The main (Intel AVX) path derives transition probabilities from the
+    # constant GOP='I'/GCP='+' strings using the RAW ASCII byte value as the
+    # Phred index into ph2pr (avx-pairhmm-template.h:108-119 does
+    # `tc->i[r-1] & 127` on ASCII 'I'==73 with no -33 offset).  This is a
+    # deliberate behavioral replication of the reference main path; the
+    # scalar oracle path in the reference subtracts the offset instead.
+    gop_char: int = ord("I")               # sam.hpp:31
+    gcp_char: int = ord("+")               # sam.hpp:32
+    max_read_length: int = 200             # sam.hpp:30
+    min_accepted_float: float = 1e-28      # pairhmm_common.h:16 (MIN_ACCEPTED)
+    # Likelihood normalization + poorly-modeled-read filter
+    # (intel_pairhmm.hpp:19-23)
+    max_best_alt_likelihood_difference: float = -4.5
+    expected_error_rate_per_base: float = 0.02
+    log10_quality_per_base: float = -4.0
+    max_expected_error_per_read: float = 2.0
+
+    # --- Genotyper (genotyper.hpp:15-19) ---
+    allele_extension: int = 2
+    max_genotype_quality: int = 99
+    min_heterozygosity_quality: int = 50
+    max_allele_count: int = 7
+
+    # --- VCF output (haplotypecaller.hpp:132-135) ---
+    sample_name: str = "NA12878"
+
+    # --- Device batching ---
+    # (read, hap) pairs are padded into a few fixed tile shapes; every group
+    # of pairs runs at the tightest (r_pad, c_pad) bucket that holds it.
+    read_pad_buckets: Tuple[int, ...] = (96, 160, 224)
+    # 448 covers every standard 245+2*85=415bp window's haplotypes (incl.
+    # insertion slack) with 12.5% fewer padded DP cells than 512
+    hap_pad_buckets: Tuple[int, ...] = (448, 512)
+
+    # --- Engine selection ---
+    # "cuda": the hand-written CUDA PairHMM kernel through the batched
+    #         runner (ops/runner.py::TorchPairHMMRunner);
+    # "native": C++ host engine;  "python": slow exact reference oracle.
+    # All engines are bit-exact, so the choice never changes the VCF.
+    pairhmm_engine: str = "cuda"
+    assembler_engine: str = "native"       # "native" | "python"
+    data_engine: str = "auto"              # "auto" | "native" | "python":
+    # columnar C++ SAM parse + window prep vs per-record Python objects
+    # "host": exact NumPy f64 reductions (the only genotyper this package
+    # has; "jax" names the reference package's device genotyper, which is
+    # not ported yet and raises).
+    genotyper_engine: str = "host"
+    f64_rescue: str = "sentinel"           # "sentinel" | "exact": underflowed
+    # f32 pairs get a provably VCF-neutral stand-in vs the reference's exact
+    # float64 recomputation (see ops/pairhmm_oracle.py::RESCUE_SENTINEL_LOG10)
+    sw_engine: str = "native"              # "native" | "python"
+    # Rows swept together by one thread of the ppe kernel (1, 2, 4 or 8).
+    # Every value computes bit-identical results; a padded read length that
+    # is not a multiple of it drops to the largest that divides it.
+    ppe_rows: int = 4
+    # Host-side region pipeline threads (prepare + assemble + job packing
+    # run in a pool; ctypes releases the GIL, so this scales with cores —
+    # the reference's OpenMP analogue for the HOST stages).  0 = one thread
+    # per CPU; 1 = inline single-thread path.
+    host_threads: int = 0
+    # Bounded-memory data path for whole-genome inputs: parse one contig's
+    # reads at a time (one cheap ranged scan of the whole file, then a
+    # per-contig slice parse) and free each contig's columns when its last
+    # region has been assembled.  Peak RSS is then O(largest contig's
+    # reads), not O(whole SAM) — the reference holds every read in RAM
+    # (haplotypecaller.hpp:24-42).  Only affects the columnar data engine.
+    stream_contigs: bool = False
+    # Streaming parse-ahead: while contig N assembles, slice-parse contig
+    # N+1's columns on one background thread, so the walk never blocks on
+    # a parse after the first contig (the native parse releases the GIL;
+    # on multi-core hosts the overlap is full, on one core the file I/O
+    # still overlaps).  Costs up to one extra contig's columns in RSS —
+    # peak becomes O(2 largest contigs) instead of O(largest); disable for
+    # the strict bound.  No effect without stream_contigs.
+    parse_ahead: bool = True
+
+
+DEFAULT_CONFIG = HCConfig()
+
