@@ -7,8 +7,10 @@ Run from the root of a checkout.  It builds every CUDA kernel of the port
 from the checkout's sources, holds each kernel against its plain PyTorch
 version (and the NumPy oracle) at the shapes the main path gives it, then
 drives the port's main path — the CLI, SAM + FASTA -> VCF with the CUDA
-PairHMM — on the chrM fixture (byte-identical to the golden VCF) and on a
-2 Mb contig at 30x (byte-identical to the port's native C++ engine).
+PairHMM, through the ppe kernel (the default) and the striped kernel
+(--pallas-algo striped) — on the chrM fixture (byte-identical to the golden
+VCF) and on a 2 Mb contig at 30x (byte-identical to the port's native C++
+engine).
 Every phase prints one JSON line and raises on failure.  The last lines are
 the card's name and power limit (nvidia-smi), one JSON object per kernel
 with its times, launches and bound, and ``{"ok": true, "device": ...}``.
@@ -44,9 +46,15 @@ PPE_REPLACES = {
     4: "gatk_hc_tpu/ops/pairhmm_pallas.py:588",
     8: "gatk_hc_tpu/ops/pairhmm_pallas.py:589",
 }
+STRIPED_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_striped.cu"
+STRIPED_REPLACES = "gatk_hc_tpu/ops/pairhmm_pallas.py:59"
+STRIPES = (8, 16, 32)
 # the kernel line reports the shape most main-path groups run at
 # (151 bp reads -> r_pad 160, 415 bp windows -> c_pad 448)
 REPORT_SHAPE = (160, 448)
+# a long-haplotype shape, where the reference package routes to striped
+# (c_pad > 640): both kernels are timed there
+LONG_SHAPE = (160, 768)
 
 
 def emit(obj) -> None:
@@ -64,6 +72,7 @@ def phase_card():
     from gatk_hc_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
+    _kernels.build_all()  # one nvcc per source, started together
     for name in _kernels.KERNELS:
         _kernels.load(name)
     build_s = time.perf_counter() - t0
@@ -79,7 +88,9 @@ def phase_card():
 
 
 def compiler_report(_kernels, name):
-    """Registers, stack and local memory per kernel instantiation, and the
+    """Registers, stack, static shared and local memory per kernel
+    instantiation (the striped kernel's shared memory is dynamic: the
+    kernel phase reports it per shape), and the
     f32 multiply / add / fused multiply-add instructions in its machine
     code, read with cuobjdump from the library just built.  Raises on any
     FFMA: the exactness rules forbid mul+add contraction."""
@@ -92,9 +103,10 @@ def compiler_report(_kernels, name):
         return subprocess.run([tool, flag, lib], capture_output=True,
                               text=True, check=True, timeout=120).stdout
 
-    def short(mangled):  # ppe_forward_kernel<4> -> "nr4"
+    def short(mangled):  # ppe_forward_kernel<4> -> "nr4", striped.. -> "striped32"
         m = re.search(r"ILi(\d+)E", mangled)
-        return f"nr{m.group(1)}" if m else mangled
+        kind = "striped" if "striped" in mangled else "nr"
+        return f"{kind}{m.group(1)}" if m else mangled
 
     out, fn = {}, None
     for line in dump("--dump-resource-usage").splitlines():
@@ -102,7 +114,7 @@ def compiler_report(_kernels, name):
         if m:
             fn = out.setdefault(short(m.group(1)), {})
             continue
-        for key in ("REG", "STACK", "LOCAL"):
+        for key in ("REG", "STACK", "SHARED", "LOCAL"):
             m = re.search(rf"\b{key}:(\d+)", line)
             if m and fn is not None:
                 fn[key.lower()] = int(m.group(1))
@@ -211,14 +223,51 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def striped_inputs(read, qual, rlen, hap, clen, device):
+    """Pair-major striped inputs on ``device``: base codes, 1 - q, q / 3
+    (the runner's host tables), lengths and INITIAL / haplen."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.ops.pairhmm_striped import striped_tables
+    from gatk_hc_tpu_torch.utils.quality import (
+        BASE_TABLE, INITIAL_CONSTANT_F32, PH2PR_F32,
+    )
+
+    base, omq, q3 = striped_tables(BASE_TABLE, PH2PR_F32)
+    q = qual & 127
+    init_y = (INITIAL_CONSTANT_F32 / clen.astype(np.float32)).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (to(base[read]), to(omq[q]), to(q3[q]), to(base[hap]), to(rlen),
+            to(clen), to(init_y))
+
+
+def timed_once(fn):
+    """(result, ms) of one call, CUDA events (for the plain versions,
+    which have nothing to warm up)."""
+    import torch
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def phase_kernels():
-    """Every NR instance against the plain version (bit for bit, all
-    pairs) and the NumPy oracle (bit for bit, 64 sampled pairs) at every
-    (r_pad, c_pad) of the default buckets, B = the runner's group size."""
+    """Every ppe NR instance against the plain version (bit for bit, all
+    pairs) and the NumPy oracle (bit for bit, 64 sampled pairs), and every
+    striped H instance against the ppe kernel (bit for bit, all pairs), at
+    every (r_pad, c_pad) of the default buckets and at LONG_SHAPE, B = the
+    runner's group size.  The default H is also held against the striped
+    plain version and the oracle at every shape; every H against its plain
+    version at REPORT_SHAPE."""
     import numpy as np
     import torch
 
     from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.ops import pairhmm_striped as ps
     from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
     from gatk_hc_tpu_torch.ops.pairhmm_oracle import pairhmm_prob
     from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
@@ -226,61 +275,93 @@ def phase_kernels():
     B = TorchPairHMMRunner.GROUP_PAIRS
     trans = pt.transition_constants(DEFAULT_CONFIG.gop_char,
                                     DEFAULT_CONFIG.gcp_char)
+    default_h = DEFAULT_CONFIG.stripe_height
+    shapes = [(r, c) for r in DEFAULT_CONFIG.read_pad_buckets
+              for c in DEFAULT_CONFIG.hap_pad_buckets] + [LONG_SHAPE]
     rng = np.random.default_rng(20261016)
     results = {}
-    for r_pad in DEFAULT_CONFIG.read_pad_buckets:
-        for c_pad in DEFAULT_CONFIG.hap_pad_buckets:
-            read, qual, rlen, hap, clen = make_pairs(rng, B, r_pad, c_pad)
-            args = kernel_inputs(read, qual, rlen, hap, clen, "cuda")
-            # the plain version has nothing to warm up: time its one call
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            plain = pt.ppe_forward_plain(*args, trans)
-            b.record()
-            b.synchronize()
-            plain_ms = a.elapsed_time(b)
-            sample = rng.choice(B, 64, replace=False)
-            want = np.array([
-                np.float32(pairhmm_prob(
-                    read[k, : rlen[k]], qual[k, : rlen[k]], hap[k, : clen[k]],
-                    DEFAULT_CONFIG.gop_char, DEFAULT_CONFIG.gcp_char,
-                    np.float32, ftz=True,
-                ))
-                for k in sample
-            ], np.float32)
-            true_cells = int(rlen.astype(np.int64) @ clen.astype(np.int64))
-            bound_ms, bound_by = ppe_bound(rlen, clen, c_pad)
-            for nr in (1, 2, 4, 8):
-                assert pt.select_rows(nr, r_pad) == nr
-                got = pt.ppe_forward(*args, trans, nr)
-                torch.cuda.synchronize()
-                same = torch.equal(got.view(torch.int32),
-                                   plain.view(torch.int32))
-                err = float((got - plain).abs().max())
-                got_np = got.cpu().numpy()
-                oracle_same = bool(np.array_equal(
-                    got_np[sample].view(np.int32), want.view(np.int32)
-                ))
-                ms = time_ms(lambda: pt.ppe_forward(*args, trans, nr), 10)
-                row = {
-                    "phase": "kernel", "name": f"ppe{nr}", "B": B,
-                    "r_pad": r_pad, "c_pad": c_pad,
-                    "bit_equal_plain": same, "bit_equal_oracle_64": oracle_same,
-                    "max_abs_err": err, "underflowed_frac": round(
-                        float((got_np == 0).mean()), 4),
-                    "ms": round(ms, 4), "plain_ms": round(plain_ms, 3),
-                    "true_cells_per_s": true_cells / (ms / 1e3),
-                    "padded_cells_per_s": B * r_pad * c_pad / (ms / 1e3),
-                    "bound_ms": round(bound_ms, 4),
-                    "bound_by": bound_by, "library_ms": None,
-                }
+    for r_pad, c_pad in shapes:
+        read, qual, rlen, hap, clen = make_pairs(rng, B, r_pad, c_pad)
+        args = kernel_inputs(read, qual, rlen, hap, clen, "cuda")
+        plain, plain_ms = timed_once(lambda: pt.ppe_forward_plain(*args, trans))
+        sample = rng.choice(B, 64, replace=False)
+        want = np.array([
+            np.float32(pairhmm_prob(
+                read[k, : rlen[k]], qual[k, : rlen[k]], hap[k, : clen[k]],
+                DEFAULT_CONFIG.gop_char, DEFAULT_CONFIG.gcp_char,
+                np.float32, ftz=True,
+            ))
+            for k in sample
+        ], np.float32)
+        true_cells = int(rlen.astype(np.int64) @ clen.astype(np.int64))
+        bound_ms, bound_by = ppe_bound(rlen, clen, c_pad)
+        common = {"B": B, "r_pad": r_pad, "c_pad": c_pad,
+                  "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
+                  "library_ms": None}
+
+        def check(name, got, plain, plain_ms, oracle=True):
+            """One instance's row: bit equality with ``plain`` (all pairs)
+            and the oracle (the sample), its ms per launch.  Raises on a
+            difference."""
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.int32), plain.view(torch.int32))
+            got_np = got.cpu().numpy()
+            oracle_same = bool(np.array_equal(
+                got_np[sample].view(np.int32), want.view(np.int32)
+            )) if oracle else None
+            row = {
+                "phase": "kernel", "name": name, **common,
+                "bit_equal_plain": same, "bit_equal_oracle_64": oracle_same,
+                "max_abs_err": float((got - plain).abs().max()),
+                "underflowed_frac": round(float((got_np == 0).mean()), 4),
+                "plain_ms": None if plain_ms is None else round(plain_ms, 3),
+            }
+            if not same or oracle_same is False:
                 emit(row)
-                if not same or not oracle_same:
-                    raise AssertionError(
-                        f"ppe{nr} at r_pad={r_pad} c_pad={c_pad}: kernel "
-                        f"differs from plain ({same}) or oracle ({oracle_same})"
-                    )
-                results[(nr, r_pad, c_pad)] = row
+                raise AssertionError(
+                    f"{name} at r_pad={r_pad} c_pad={c_pad}: kernel differs "
+                    f"from plain ({same}) or oracle ({oracle_same})"
+                )
+            return row
+
+        def timed(row, fn):
+            ms = time_ms(fn, 10)
+            row.update({
+                "ms": round(ms, 4),
+                "true_cells_per_s": true_cells / (ms / 1e3),
+                "padded_cells_per_s": B * r_pad * c_pad / (ms / 1e3),
+            })
+            emit(row)
+            results[(row["name"], r_pad, c_pad)] = row
+
+        ppe_out = {}
+        for nr in (1, 2, 4, 8):
+            assert pt.select_rows(nr, r_pad) == nr
+            ppe_out[nr] = pt.ppe_forward(*args, trans, nr)
+            row = check(f"ppe{nr}", ppe_out[nr], plain, plain_ms)
+            timed(row, lambda: pt.ppe_forward(*args, trans, nr))
+
+        # striped: every H against the ppe kernel (NR 4, the default); the
+        # default H (every shape) and every H (REPORT_SHAPE) against the
+        # striped plain version, which hands rows between stripes
+        sargs = striped_inputs(read, qual, rlen, hap, clen, "cuda")
+        for h in STRIPES:
+            got = ps.striped_forward(*sargs, trans, h)
+            row = check(f"striped{h}", got, ppe_out[4], None,
+                        oracle=h == default_h)
+            row["bit_equal_ppe"] = row.pop("bit_equal_plain")
+            row.update(ps.launch_shape(c_pad, h))
+            if h == default_h or (r_pad, c_pad) == REPORT_SHAPE:
+                splain, splain_ms = timed_once(
+                    lambda: ps.striped_forward_plain(*sargs, trans, h))
+                own = check(f"striped{h}", got, splain, splain_ms,
+                            oracle=False)
+                row.update(
+                    bit_equal_plain=own["bit_equal_plain"],
+                    plain_ms=own["plain_ms"],
+                    max_abs_err=max(row["max_abs_err"], own["max_abs_err"]),
+                )
+            timed(row, lambda: ps.striped_forward(*sargs, trans, h))
     return results
 
 
@@ -304,35 +385,46 @@ def run_cli(argv):
 
 def phase_chrm(tmp):
     """chrM through the CLI on the card: byte-identical to the golden VCF,
-    once per NR instance (--ppe-rows), each run's launches counted."""
+    once per kernel instance (--ppe-rows, --pallas-algo striped
+    --stripe-height), each run launching that instance and no other."""
     fixtures = os.path.join(ROOT, "fixtures")
     with open(os.path.join(fixtures, "chrM.golden.vcf"), "rb") as handle:
         golden = handle.read()
+    runs = [("ppe4", [])] + [  # NR 4 is the default
+        (f"ppe{nr}", ["--ppe-rows", str(nr)]) for nr in (1, 2, 8)
+    ] + [
+        (f"striped{h}", ["--pallas-algo", "striped", "--stripe-height", str(h)])
+        for h in (32, 8, 16)  # 32 is the default height
+    ]
     launches = {}
-    for nr in (4, 1, 2, 8):
-        out = os.path.join(tmp, f"chrM.ppe{nr}.vcf")
-        argv = ["-I", os.path.join(fixtures, "chrM.sam"),
-                "-R", os.path.join(fixtures, "chrM.fa"), "-O", out]
-        if nr != 4:  # 4 is the default
-            argv += ["--ppe-rows", str(nr)]
-        stats = run_cli(argv)
+    for name, flags in runs:
+        out = os.path.join(tmp, f"chrM.{name}.vcf")
+        stats = run_cli(["-I", os.path.join(fixtures, "chrM.sam"),
+                         "-R", os.path.join(fixtures, "chrM.fa"), "-O", out]
+                        + flags)
         with open(out, "rb") as handle:
             identical = handle.read() == golden
-        emit({"phase": "chrM", "ppe_rows": nr, "golden_identical": identical,
+        emit({"phase": "chrM", "kernel": name, "flags": flags,
+              "golden_identical": identical,
               "regions": stats["regions"], "variants": stats["variants"],
               "launches": stats["launches"], "wall_s": stats["wall_s"],
+              "dispatch_profile": stats.get("dispatch_profile"),
               "device_stages_ms": stats.get("device_stages_ms")})
-        if not identical or stats["launches"][nr] == 0:
-            raise AssertionError(f"chrM with ppe{nr}: golden {identical}, "
+        if not identical or stats["launches"][name] == 0:
+            raise AssertionError(f"chrM with {name}: golden {identical}, "
                                  f"launches {stats['launches']}")
-        if any(n for k, n in stats["launches"].items() if k != nr):
-            raise AssertionError(f"unexpected NR launched: {stats['launches']}")
-        launches[nr] = stats["launches"][nr]
+        if any(n for k, n in stats["launches"].items() if k != name):
+            raise AssertionError(
+                f"unexpected kernel launched: {stats['launches']}")
+        launches[name] = stats["launches"][name]
     return launches
 
 
 def phase_contig(tmp):
-    """2 Mb contig at 30x: cuda vs the port's native engine, byte-identical."""
+    """2 Mb contig at 30x: the cuda engine through the ppe kernel (the
+    default) and the striped kernel (--pallas-algo striped), in turns ppe,
+    striped, striped, ppe so that their walls compare within one call,
+    each VCF byte-identical to the port's native engine's."""
     import torch
 
     from gatk_hc_tpu_torch.tools import make_fixture
@@ -342,35 +434,52 @@ def phase_contig(tmp):
     with contextlib.redirect_stdout(io.StringIO()):
         make_fixture.main([fix, "--length", "2000000", "--name", "chr20sim"])
     gen_s = time.perf_counter() - t0
-    sam = os.path.join(fix, "chr20sim.sam")
-    fasta = os.path.join(fix, "chr20sim.fa")
-    torch.cuda.reset_peak_memory_stats()
-    cuda_vcf = os.path.join(tmp, "chr20sim.cuda.vcf")
-    cuda = run_cli(["-I", sam, "-R", fasta, "-O", cuda_vcf])
-    max_mem = torch.cuda.max_memory_allocated()
+    base = ["-I", os.path.join(fix, "chr20sim.sam"),
+            "-R", os.path.join(fix, "chr20sim.fa")]
+    flags = {"ppe4": [], "striped32": ["--pallas-algo", "striped"]}
+    runs = {name: [] for name in flags}
+    for k, name in enumerate(("ppe4", "striped32", "striped32", "ppe4")):
+        vcf = os.path.join(tmp, f"chr20sim.{k}.{name}.vcf")
+        torch.cuda.reset_peak_memory_stats()
+        stats = run_cli(base + ["-O", vcf] + flags[name])
+        stats["cuda_max_memory_allocated_mb"] = round(
+            torch.cuda.max_memory_allocated() / 2**20, 1)
+        with open(vcf, "rb") as handle:
+            stats["vcf"] = handle.read()
+        runs[name].append(stats)
     native_vcf = os.path.join(tmp, "chr20sim.native.vcf")
-    native = run_cli(["-I", sam, "-R", fasta, "-O", native_vcf,
-                      "--pairhmm", "native"])
-    with open(cuda_vcf, "rb") as a, open(native_vcf, "rb") as b:
-        identical = a.read() == b.read()
+    native = run_cli(base + ["-O", native_vcf, "--pairhmm", "native"])
+    with open(native_vcf, "rb") as handle:
+        want = handle.read()
+    first = runs["ppe4"][0]
     row = {
         "phase": "contig_2mb", "fixture_gen_s": round(gen_s, 1),
-        "identical_to_native": identical,
-        "regions": cuda["regions"], "variants": cuda["variants"],
-        "cell_updates": cuda["cell_updates"], "wall_s": cuda["wall_s"],
-        "cells_per_s": cuda["cells_per_s"], "stages": cuda["stages"],
-        "device_stages_ms": cuda.get("device_stages_ms"),
-        "launches": cuda["launches"],
-        "dispatch_profile": cuda.get("dispatch_profile"),
+        "regions": first["regions"], "variants": first["variants"],
+        "cell_updates": first["cell_updates"],
         "peak_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
-        "cuda_max_memory_allocated_mb": round(max_mem / 2**20, 1),
         "native_wall_s": native["wall_s"], "native_stages": native["stages"],
     }
+    for name, done in runs.items():
+        row[name] = {
+            "identical_to_native": [s["vcf"] == want for s in done],
+            "wall_s": [s["wall_s"] for s in done],
+            "cells_per_s": [s["cells_per_s"] for s in done],
+            "stages": [s["stages"] for s in done],
+            "device_stages_ms": [s.get("device_stages_ms") for s in done],
+            "launches": [s["launches"] for s in done],
+            "dispatch_profile": [s.get("dispatch_profile") for s in done],
+            "cuda_max_memory_allocated_mb": [
+                s["cuda_max_memory_allocated_mb"] for s in done],
+        }
     emit(row)
-    if not identical or cuda["launches"][4] == 0:
-        raise AssertionError(f"2 Mb contig: identical {identical}, "
-                             f"launches {cuda['launches']}")
-    return cuda["launches"]
+    for name, done in runs.items():
+        for stats in done:
+            launched = {k: n for k, n in stats["launches"].items() if n}
+            if stats["vcf"] != want or set(launched) != {name}:
+                raise AssertionError(
+                    f"2 Mb contig with {name}: identical to native "
+                    f"{stats['vcf'] == want}, launches {stats['launches']}")
+    return {name: done[0]["launches"][name] for name, done in runs.items()}
 
 
 def main() -> int:
@@ -390,15 +499,20 @@ def main() -> int:
         chrm_launches = phase_chrm(tmp)
         contig_launches = phase_contig(tmp)
     lines = []
-    for nr in (1, 2, 4, 8):
-        rows = [v for (k, _r, _c), v in kernels.items() if k == nr]
-        rep = kernels[(nr,) + REPORT_SHAPE]
+    for name in [f"ppe{nr}" for nr in (1, 2, 4, 8)] + [
+        f"striped{h}" for h in STRIPES
+    ]:
+        rows = [v for (k, _r, _c), v in kernels.items() if k == name]
+        rep = kernels[(name,) + REPORT_SHAPE]
+        striped = name.startswith("striped")
         lines.append({
-            "name": f"ppe{nr}", "route": "cuda", "source": PPE_SOURCE,
-            "replaces": PPE_REPLACES[nr],
-            # the main path's run of this instance: the default (NR=4)
-            # drives the 2 Mb contig; --ppe-rows N drives chrM
-            "launches": contig_launches[nr] or chrm_launches[nr],
+            "name": name, "route": "cuda",
+            "source": STRIPED_SOURCE if striped else PPE_SOURCE,
+            "replaces": STRIPED_REPLACES if striped
+            else PPE_REPLACES[int(name[3:])],
+            # the main path's run of this instance: the defaults (ppe4,
+            # striped32) drive the 2 Mb contig; chrM runs every instance
+            "launches": contig_launches.get(name) or chrm_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

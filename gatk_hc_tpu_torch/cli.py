@@ -6,7 +6,8 @@
 Extensions over the reference: engine and device selection, deterministic
 downsampling, interval restriction (-L), verbosity, stage timing stats,
 checkpoint/resume manifests, and assembly-graph dumps.  The PairHMM runs on
-the CUDA card by default (--pairhmm cuda --device cuda); --device cpu runs
+the CUDA card by default (--pairhmm cuda --device cuda) through the ppe
+kernel, or the striped kernel with --pallas-algo striped; --device cpu runs
 the same runner through the kernel's plain PyTorch version.
 """
 
@@ -79,6 +80,18 @@ def build_parser() -> argparse.ArgumentParser:
         "and free its columns when its regions finish (WGS-scale inputs)",
     )
     parser.add_argument(
+        "--pallas-algo", default=DEFAULT_CONFIG.pallas_algo,
+        choices=("ppe", "striped"),
+        help="CUDA PairHMM kernel of --pairhmm cuda: ppe (one thread per "
+        "pair, the default) or striped (a warp's lanes sweep stripes of a "
+        "pair's rows); both give the same result",
+    )
+    parser.add_argument(
+        "--stripe-height", type=int, default=DEFAULT_CONFIG.stripe_height,
+        choices=(8, 16, 32), help="rows of a stripe in the striped kernel "
+        "(every value gives the same result)",
+    )
+    parser.add_argument(
         "--ppe-rows", type=int, default=DEFAULT_CONFIG.ppe_rows,
         choices=(1, 2, 4, 8), help="rows one thread sweeps together in the "
         "ppe kernel (every value gives the same result)",
@@ -145,6 +158,8 @@ def main(argv=None) -> int:
         padding_size=args.padding_size,
         host_threads=args.host_threads,
         stream_contigs=args.stream_contigs,
+        pallas_algo=args.pallas_algo,
+        stripe_height=args.stripe_height,
         ppe_rows=args.ppe_rows,
     )
     if args.dump_graph is not None:
@@ -245,7 +260,7 @@ def main(argv=None) -> int:
             from .ops.pairhmm_torch import LAUNCHES
 
             stats["kernel_launches"] = {
-                f"ppe{nr}": n for nr, n in LAUNCHES.items() if n
+                name: n for name, n in LAUNCHES.items() if n
             }
             # per-group device-stage medians (ms): host pack, H2D, pair
             # gather, kernel, D2H (per submit) and host finalize

@@ -127,6 +127,14 @@ class HCConfig:
     # Every value computes bit-identical results; a padded read length that
     # is not a multiple of it drops to the largest that divides it.
     ppe_rows: int = 4
+    # PairHMM kernel of the cuda engine: "ppe" (csrc/pairhmm_ppe.cu, one
+    # thread per pair) or "striped" (csrc/pairhmm_striped.cu, H lanes per
+    # pair sweeping stripes of stripe_height rows).  Both compute the same
+    # result bit for bit; padded read lengths round up to a multiple of
+    # stripe_height on the striped path.  The names and defaults are the
+    # reference package's, so a reference config carries them across.
+    pallas_algo: str = "ppe"
+    stripe_height: int = 32
     # Host-side region pipeline threads (prepare + assemble + job packing
     # run in a pool; ctypes releases the GIL, so this scales with cores —
     # the reference's OpenMP analogue for the HOST stages).  0 = one thread
@@ -147,6 +155,17 @@ class HCConfig:
     # peak becomes O(2 largest contigs) instead of O(largest); disable for
     # the strict bound.  No effect without stream_contigs.
     parse_ahead: bool = True
+
+    def __post_init__(self) -> None:
+        if self.pallas_algo not in ("ppe", "striped"):
+            raise ValueError(
+                f"pallas_algo must be 'ppe' or 'striped', got {self.pallas_algo!r}"
+            )
+        # the heights the striped CUDA kernel is built for
+        if self.stripe_height not in (8, 16, 32):
+            raise ValueError(
+                f"stripe_height must be 8, 16 or 32, got {self.stripe_height}"
+            )
 
 
 DEFAULT_CONFIG = HCConfig()

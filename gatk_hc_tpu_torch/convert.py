@@ -24,10 +24,8 @@ from .ops.pairhmm_torch import TABLE_KEYS, plane_tables
 # port has no counterpart, so they are dropped by name.
 TPU_ONLY_KEYS = (
     "pair_batch",
-    "stripe_height",
     "fuse_groups",
     "fuse_auto",
-    "pallas_algo",
     "dispatch_mode",
     "packed_nib",
     "device_timeout_s",

@@ -23,10 +23,9 @@ _lib: Optional[ctypes.CDLL] = None
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        if not os.path.exists(_LIB_PATH):
-            from .build import build
+        from .build import build
 
-            build()
+        build()  # a no-op unless the library is missing or older than its source
         _lib = ctypes.CDLL(_LIB_PATH)
         _configure(_lib)
         _push_tables(_lib)
@@ -497,7 +496,7 @@ class _FusedCtrls(threading.local):
         return self.map
 
 
-def fused_window_fn(cfg, store, contig_seqs=None):
+def fused_window_fn(cfg, store, contig_seqs=None, sel_capacity=None):
     """Whole-window native fast path over a ColumnarReadStore:
     ``(contig, begin, end, window_ref) -> (reads, n_downsampled, haps)``.
     ONE single-argument ctypes call per region runs downsample-select +
@@ -509,7 +508,10 @@ def fused_window_fn(cfg, store, contig_seqs=None):
     the differential oracle.  Reads come back as a columnar WindowReads
     (no per-read objects).  ``contig_seqs`` ({name: full sequence}) is
     required for the ctrl path (window ref = pointer arithmetic into one
-    per-contig encode); without it the legacy multi-argument call runs."""
+    per-contig encode); without it the legacy multi-argument call runs.
+    ``sel_capacity`` sizes the downsample-select scratch (default: the
+    larger of the window width and 1024 positions); a window wider than it
+    raises instead of writing past the scratch."""
     from ..io.columnar import window_reads_from_outputs
     from ..models.haplotype import Haplotype
 
@@ -557,6 +559,7 @@ def fused_window_fn(cfg, store, contig_seqs=None):
         ctrl[25] = ws.out_ae.ctypes.data
         ctrl[26] = ws.kept_out.ctypes.data
         ctrl[27] = sel_scratch.ctypes.data
+        ctrl[28] = len(sel_scratch)
         ctrl[32] = s.arena.ctypes.data
         ctrl[33] = len(s.arena)
         ctrl[34] = s.hap_offsets.ctypes.data
@@ -602,7 +605,10 @@ def fused_window_fn(cfg, store, contig_seqs=None):
         ctrl[30] = cfg_ints.ctypes.data
         ctrl[31] = sw_ints.ctypes.data
         ctrl[36] = max_h
-        sel_scratch = np.empty(max(win_width, 1024), np.int64)
+        sel_scratch = np.empty(
+            max(win_width, 1024) if sel_capacity is None else sel_capacity,
+            np.int64,
+        )
         nds_out = np.zeros(1, np.int32)
         needed_out = np.zeros(1, np.int64)
         aux = (sel_scratch, nds_out, needed_out)
@@ -662,6 +668,11 @@ def fused_window_fn(cfg, store, contig_seqs=None):
             _fill_scratch_slots(ctrl, ws, s, aux)
             gens[0] = ws.gen + s.gen
             n = fused(ctrl_p)
+        if n == -11:
+            raise ValueError(
+                f"window {contig}:{begin}-{end} is wider than the "
+                f"downsample-select scratch ({len(aux[0])} positions)"
+            )
         if n < 0:
             _raise_assemble_error("hc_fused_run", n)
         n_ds = int(aux[1][0])

@@ -2434,6 +2434,8 @@ int32_t hc_prepare_assemble_sw(
 //   18..19 window begin, end                     (REWRITTEN per region)
 //   20..26 out seq*, qual*, cap, off*, abegin*, aend*, kept*(i32)
 //   27     sel scratch* (int64, >= max window width entries)
+//   28     sel scratch capacity (entries); a window wider than it
+//          returns -11 before anything is written
 //   29     contig reference bytes* (window ref = base + begin)
 //   30..31 assembler cfg ints*, SW cfg ints*
 //   32..41 hap outputs: arena*, cap, offsets*, scores*, max_h,
@@ -2468,6 +2470,8 @@ int32_t hc_fused_run(const int64_t* ctrl) {
   // read per non-empty start position in [begin, end), position order)
   const int64_t lo = begin > 0 ? begin : 0;
   const int64_t hi = end < idx_size ? end : idx_size;
+  // at most one read per position: hi - lo entries bound the selection
+  if (hi - lo > P(28)) return -11;
   int32_t n_sel = 0;
   for (int64_t p = lo; p < hi; ++p) {
     const int64_t cnt = idx_counts[p];

@@ -79,6 +79,15 @@ def build(name: str) -> str:
     return out
 
 
+def build_all() -> Dict[str, str]:
+    """Compile every kernel library at once (one nvcc per source, all
+    started together) -> {name: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process."""
     lib = _libs.get(name)
@@ -107,5 +116,25 @@ def _bind_pairhmm_ppe(lib: ctypes.CDLL) -> None:
     ]
 
 
-_BINDERS = {"pairhmm_ppe": _bind_pairhmm_ppe}
+def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.pairhmm_striped_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        vp, vp, vp, vp,  # read codes, omq, q3, hap codes
+        vp, vp, vp,  # rlen, clen, init_y
+        vp,  # out
+        i, i, i, i,  # B, r_pad, c_pad, stripe
+        f, f, f, f, f, f,  # p_mm, p_gapm, p_mx, p_xx, p_my, p_yy
+        vp,  # cudaStream_t
+    ]
+    shape = lib.pairhmm_striped_launch_shape
+    shape.restype = ctypes.c_int
+    shape.argtypes = [i, i, vp]  # c_pad, stripe, int[3] out
+
+
+_BINDERS = {
+    "pairhmm_ppe": _bind_pairhmm_ppe,
+    "pairhmm_striped": _bind_pairhmm_striped,
+}
 KERNELS = tuple(_BINDERS)

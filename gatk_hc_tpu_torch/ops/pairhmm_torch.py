@@ -16,7 +16,8 @@ pair-minor (the last axis is the pair), so a warp's loads coalesce:
 version on CPU tensors; nothing else picks between them.  The public
 entry points keep the reference package's layouts: ``pairhmm_planes`` has
 the signature of pairhmm_pallas_planes and ``forward_batch`` the pair-major
-signature of _pallas_forward, so the tests compare like with like.
+signature of _pallas_forward (it also reaches the striped kernel of
+ops/pairhmm_striped.py), so the tests compare like with like.
 """
 
 from __future__ import annotations
@@ -31,14 +32,18 @@ from ..utils.quality import MATCH_TO_MATCH_F32, PH2PR_F32, set_mm_prob
 # f32 smallest normal: results below it flush to zero (FTZ, not DAZ)
 MIN_NORMAL = float(np.ldexp(1.0, -126))
 
-# Kernel launches per NR instance; the wrapper adds one where it launches
-# the kernel and nowhere else (chip_smoke.py reads these).
-LAUNCHES: Dict[int, int] = {1: 0, 2: 0, 4: 0, 8: 0}
+# Kernel launches per instance ("ppe<NR>", "striped<H>"); each wrapper adds
+# one where it launches its kernel and nowhere else (chip_smoke.py and the
+# CLI's --stats read these).
+LAUNCHES: Dict[str, int] = {
+    **{f"ppe{nr}": 0 for nr in (1, 2, 4, 8)},
+    **{f"striped{h}": 0 for h in (8, 16, 32)},
+}
 
 
 def reset_launches() -> None:
-    for nr in LAUNCHES:
-        LAUNCHES[nr] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def transition_constants(gop: int, gcp: int) -> Tuple[float, ...]:
@@ -292,7 +297,7 @@ def ppe_forward(rows, hap, rlen, clen, init_y, trans, ppe_rows: int = 4):
     )
     if err != 0:
         raise RuntimeError(f"pairhmm_ppe_forward launch failed: CUDA error {err}")
-    LAUNCHES[nr] += 1
+    LAUNCHES[f"ppe{nr}"] += 1
     return out
 
 
@@ -353,10 +358,22 @@ def base_mask(codes: torch.Tensor) -> torch.Tensor:
 
 def forward_batch(read_codes, read_omq, read_q3, read_lens, hap_codes,
                   hap_lens, init_y, trans, r_pad: int, c_pad: int,
-                  ppe_rows: int = 2) -> torch.Tensor:
+                  ppe_rows: int = 2, stripe: int = 8,
+                  algo: str = "auto") -> torch.Tensor:
     """Pair-major entry point with _pallas_forward's inputs: (B, r_pad)
-    read codes / 1-q / q/3, (B, c_pad) hap codes, (B,) lengths and init_y.
-    Runs on the inputs' device; returns (B,) f32."""
+    read codes / 1-q / q/3, (B, c_pad) hap codes, (B,) lengths and init_y;
+    the counterpart of pairhmm_pallas_batch.  Runs on the inputs' device;
+    returns (B,) f32.
+
+    ``algo`` is "ppe" (NR from ``ppe_rows``), "striped" (stripe height
+    ``stripe``, which must divide r_pad) or "auto", which is ppe at every
+    shape: the reference's _ppe_eligible conditions (c_pad <= 640 and a
+    multiple of 32, B a multiple of 1024, not interpret mode) are limits of
+    the TPU's VMEM and (8, 128) tiling that the CUDA ppe kernel, which
+    keeps its row in device memory, does not have.  Every choice computes
+    the same result bit for bit."""
+    if algo not in ("ppe", "striped", "auto"):
+        raise ValueError(f"unknown algo {algo!r}")
     read_codes = torch.as_tensor(read_codes)
     dev = read_codes.device
     as_t = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
@@ -364,6 +381,18 @@ def forward_batch(read_codes, read_omq, read_q3, read_lens, hap_codes,
         raise ValueError(
             f"expected (B, {r_pad}) reads and (B, {c_pad}) haps, got "
             f"{tuple(read_codes.shape)} and {tuple(hap_codes.shape)}"
+        )
+    if algo == "striped":
+        from .pairhmm_striped import striped_forward
+
+        return striped_forward(
+            as_t(read_codes, torch.int32).contiguous(),
+            as_t(read_omq, torch.float32).contiguous(),
+            as_t(read_q3, torch.float32).contiguous(),
+            as_t(hap_codes, torch.int32).contiguous(),
+            as_t(read_lens, torch.int32).contiguous(),
+            as_t(hap_lens, torch.int32).contiguous(),
+            as_t(init_y, torch.float32).contiguous(), trans, stripe,
         )
     rows = torch.stack(
         [

@@ -6,17 +6,21 @@ separately would drown in per-launch overhead.  ``TorchPairHMMRunner``:
 1. groups jobs greedily until a launch fills up (pair budget / unique-read
    budget / unique-hap budget);
 2. packs each group's UNIQUE reads and haplotypes once on the host into one
-   pinned i32 plane buffer (table lookups applied there; divisions too);
+   pinned buffer: for the ppe kernel (cfg.pallas_algo "ppe") i32 planes
+   with the table lookups applied there; for the striped kernel
+   ("striped") the raw bytes, 2 B per base, whose lookups run on the card
+   once per group (ops/pairhmm_striped.py::prepare_tables_striped);
+   divisions stay on the host either way;
 3. on one CUDA stream: copies the buffer to the card, expands (read, hap)
-   pairs with device index ops and launches the ppe kernel per chunk,
+   pairs with device index ops and launches the kernel per chunk,
    concatenates a submit's outputs and copies them back in one transfer;
 4. at drain, scatters raw f32 probabilities back to per-job read-major
    matrices and finalizes log10 likelihoods (sentinel or exact host float64
    rescue for underflowed pairs, cfg.f64_rescue).
 
 This is the GPU counterpart of gatk_hc_tpu/ops/runner.py::
-PallasPairHMMRunner on its planes path, and of the reference's flat
-testcase batch + OpenMP loop (intel_pairhmm.hpp:115-203).
+PallasPairHMMRunner on its planes and striped paths, and of the
+reference's flat testcase batch + OpenMP loop (intel_pairhmm.hpp:115-203).
 """
 
 from __future__ import annotations
@@ -121,7 +125,8 @@ class _Batch:
 
 
 class TorchPairHMMRunner:
-    """Batches PairHMMJobs into ppe kernel launches on one device.
+    """Batches PairHMMJobs into PairHMM kernel launches on one device: the
+    ppe kernel, or the striped one when cfg.pallas_algo is "striped".
 
     ``device`` is "cuda" (the default: the CUDA kernel; raises when no card
     is visible) or "cpu" (the same packing, gather and finalize around the
@@ -140,7 +145,7 @@ class TorchPairHMMRunner:
     READ_BUCKETS = (4096, 16384)
     HAP_BUCKETS = (1024, 4096)
     GROUP_PAIRS = 65536
-    ROW_ALIGN = 8  # r_pad past the buckets rounds to the largest NR
+    ROW_ALIGN = 8  # ppe: r_pad past the buckets rounds to the largest NR
 
     def __init__(self, cfg: HCConfig, device="cuda",
                  pair_budget: Optional[int] = None, tables=None):
@@ -166,6 +171,15 @@ class TorchPairHMMRunner:
         self._omq_bits_tab = host["omq_bits"]
         self._q3_bits_tab = host["q3_bits"]
         self.trans = tuple(np.float32(t) for t in host["trans"])
+        self.striped = cfg.pallas_algo == "striped"
+        if self.striped:
+            from .pairhmm_striped import striped_tables
+
+            # byte -> code, Phred -> 1 - q, Phred -> q / 3, on the device
+            self._striped_tabs = tuple(
+                torch.from_numpy(t).to(self.device)
+                for t in striped_tables(host["base_table"], host["ph2pr"])
+            )
         self.pair_budget = pair_budget or self.GROUP_PAIRS
         # launches by path, surfaced as dispatch_profile in --stats
         self.dispatch_counts: Dict[str, int] = {}
@@ -249,7 +263,8 @@ class TorchPairHMMRunner:
 
     # ------------------------------------------------------------------
     def _round_rows(self, r: int) -> int:
-        a = self.ROW_ALIGN
+        # striped: a multiple of the stripe height, which then divides r_pad
+        a = self.cfg.stripe_height if self.striped else self.ROW_ALIGN
         return ((r + a - 1) // a) * a
 
     def _pads_for_group(self, jobs, group):
@@ -411,6 +426,13 @@ class TorchPairHMMRunner:
             rb += nr
             hb += nh
 
+        if self.striped:
+            return self._submit_striped(
+                read_u8, qual_u8, hap_u8, read_lens, hap_lens, hap_init_y,
+                pr_parts, ph_parts, spans, start, total, t_pack,
+                (nr_pad, nh_pad, r_pad, c_pad),
+            )
+
         # one host buffer: [planes | pair reads | pair haps], pinned for an
         # asynchronous copy on the CUDA path
         n_planes = nr_pad + 2 * nh_pad + 3 * nr_pad * r_pad + nh_pad * c_pad
@@ -443,6 +465,66 @@ class TorchPairHMMRunner:
             chunks.append((s0, s1, _Stamp(self._stream)))
             self.dispatch_counts["planes"] = (
                 self.dispatch_counts.get("planes", 0) + 1
+            )
+        return _Group(spans, start, total, pack_ms, (h0, h1), chunks), outs
+
+    def _submit_striped(self, read_u8, qual_u8, hap_u8, read_lens, hap_lens,
+                        hap_init_y, pr_parts, ph_parts, spans, start, total,
+                        t_pack, pads):
+        """The striped kernel's shipping path (the counterpart of the
+        reference runner's raw-byte branch): one host buffer
+        [reads | quals | haps] uint8, padded to 4 bytes, then
+        [read lens | hap lens | init_y bits | pair reads | pair haps] i32;
+        one copy to the card; the base and Phred tables applied there once
+        per group; a pair gather and a striped launch per chunk."""
+        from .pairhmm_striped import (
+            gather_pairs_striped, prepare_tables_striped, striped_forward,
+        )
+
+        nr_pad, nh_pad, r_pad, c_pad = pads
+        nrr = nr_pad * r_pad
+        n_u8 = 2 * nrr + nh_pad * c_pad
+        i32_at = (n_u8 + 3) // 4 * 4
+        head = nr_pad + 2 * nh_pad
+        cuda = self._stream is not None
+        host = torch.empty(i32_at + 4 * (head + 2 * total), dtype=torch.uint8,
+                           pin_memory=cuda)
+        host_np = host.numpy()
+        host_np[:nrr] = read_u8
+        host_np[nrr : 2 * nrr] = qual_u8
+        host_np[2 * nrr : n_u8] = hap_u8
+        ints = host_np[i32_at:].view(np.int32)
+        ints[:nr_pad] = read_lens
+        ints[nr_pad : nr_pad + nh_pad] = hap_lens
+        ints[nr_pad + nh_pad : head] = hap_init_y.view(np.int32)
+        ints[head : head + total] = np.concatenate(pr_parts)
+        ints[head + total :] = np.concatenate(ph_parts)
+        pack_ms = (time.perf_counter() - t_pack) * 1e3
+
+        h0 = _Stamp(self._stream)
+        dev = host.to(self.device, non_blocking=True) if cuda else host
+        h1 = _Stamp(self._stream)
+        u8buf = dev[:n_u8]
+        i32buf = dev[i32_at:].view(torch.int32)
+        pairs = i32buf[head:].view(2, total)
+        tables = None
+        outs, chunks = [], []
+        for off in range(0, total, self.pair_budget):
+            size = min(self.pair_budget, total - off)
+            s0 = _Stamp(self._stream)
+            if tables is None:  # once per group, timed with the gather
+                tables = prepare_tables_striped(
+                    u8buf, i32buf, *self._striped_tabs,
+                    nr_pad, nh_pad, r_pad, c_pad,
+                )
+            args = gather_pairs_striped(*tables, pairs[:, off : off + size])
+            s1 = _Stamp(self._stream)
+            outs.append(
+                striped_forward(*args, self.trans, self.cfg.stripe_height)
+            )
+            chunks.append((s0, s1, _Stamp(self._stream)))
+            self.dispatch_counts["striped"] = (
+                self.dispatch_counts.get("striped", 0) + 1
             )
         return _Group(spans, start, total, pack_ms, (h0, h1), chunks), outs
 

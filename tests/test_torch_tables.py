@@ -125,15 +125,43 @@ def test_config_from_reference_default():
 
 
 def test_config_from_reference_carries_values():
+    """Ported settings cross unchanged, the kernel selection included:
+    pallas_algo and stripe_height are carried, not dropped."""
     ref = dataclasses.replace(
         jax_config.DEFAULT_CONFIG, pairhmm_engine="native", ppe_rows=8,
         region_size=300, read_pad_buckets=(64, 128), stripe_height=16,
-        sw_params=jax_config.STANDARD_NGS_SW,
+        pallas_algo="striped", sw_params=jax_config.STANDARD_NGS_SW,
     )
     got = convert.config_from_reference(dataclasses.asdict(ref))
     assert (got.pairhmm_engine, got.ppe_rows, got.region_size) == ("native", 8, 300)
+    assert (got.pallas_algo, got.stripe_height) == ("striped", 16)
     assert got.read_pad_buckets == (64, 128)
     assert got.sw_params == torch_config.STANDARD_NGS_SW
+    # and back: every field the two configs share survives a round trip
+    back = dataclasses.asdict(got)
+    for key, value in dataclasses.asdict(ref).items():
+        if key in back and key != "pairhmm_engine":
+            assert back[key] == value, key
+
+
+def test_config_from_reference_striped_runs_striped_kernel():
+    """A reference config that asks for the striped kernel gives a port
+    config whose cuda runner dispatches through it."""
+    from gatk_hc_tpu_torch.ops.runner import PairHMMJob, TorchPairHMMRunner
+    from tests.test_pairhmm import make_pair, to_bytes
+    import random
+
+    ref = dataclasses.replace(
+        jax_config.DEFAULT_CONFIG, pallas_algo="striped", stripe_height=8,
+        read_pad_buckets=(32,), hap_pad_buckets=(128,),
+    )
+    cfg = convert.config_from_reference(dataclasses.asdict(ref))
+    read, quals, hap = make_pair(random.Random(3), 20, 60, 1)
+    job = PairHMMJob([(to_bytes(read), to_bytes(quals))], [to_bytes(hap)])
+    runner = TorchPairHMMRunner(cfg, device="cpu")
+    runner.run([job])
+    assert runner.dispatch_counts == {"striped": 1}
+    assert np.isfinite(job.result).all()
 
 
 def test_config_from_reference_rejects():
