@@ -5,7 +5,8 @@
 
 Run from the root of a checkout.  It builds every CUDA kernel of the port
 from the checkout's sources, holds each kernel against its plain PyTorch
-version (and the NumPy oracle) at the shapes the main path gives it, then
+version (and the NumPy oracle) at the shapes the main path gives it and
+at one shape with reads longer than 256 rows, then
 drives the port's main path — the CLI, SAM + FASTA -> VCF with the CUDA
 PairHMM, through the ppe kernel (the default) and the striped kernel
 (--pallas-algo striped) — on the chrM fixture (byte-identical to the golden
@@ -55,20 +56,29 @@ REPORT_SHAPE = (160, 448)
 # a long-haplotype shape, where the reference package routes to striped
 # (c_pad > 640): both kernels are timed there
 LONG_SHAPE = (160, 768)
+# reads longer than 256 rows: the ppe kernel runs two stripes of 256 rows
+# and carries a row between them (off the main path: B cut to a quarter)
+CARRY_SHAPE = (288, 448)
+LAUNCH_KEYS = ("rows_per_lane", "stripes", "warps_per_block", "blocks_per_sm")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def phase_card():
-    import torch
-
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    import torch
+
+    smi = nvidia_smi()
     from gatk_hc_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -103,10 +113,15 @@ def compiler_report(_kernels, name):
         return subprocess.run([tool, flag, lib], capture_output=True,
                               text=True, check=True, timeout=120).stdout
 
-    def short(mangled):  # ppe_forward_kernel<4> -> "nr4", striped.. -> "striped32"
-        m = re.search(r"ILi(\d+)E", mangled)
-        kind = "striped" if "striped" in mangled else "nr"
-        return f"{kind}{m.group(1)}" if m else mangled
+    def short(mangled):
+        """ppe_forward_kernel<5, false> -> "ppe_k5", <8, true> ->
+        "ppe_k8_carry", striped_forward_kernel<32> -> "striped32"."""
+        m = re.search(r"ILi(\d+)E(?:Lb([01])E)?", mangled)
+        if not m:
+            return mangled
+        if "striped" in mangled:
+            return f"striped{m.group(1)}"
+        return f"ppe_k{m.group(1)}" + ("_carry" if m.group(2) == "1" else "")
 
     out, fn = {}, None
     for line in dump("--dump-resource-usage").splitlines():
@@ -129,6 +144,12 @@ def compiler_report(_kernels, name):
             fn[m.group(1)] = fn.get(m.group(1), 0) + 1
     if any(info.get("FFMA") for info in out.values()):
         raise AssertionError(f"{name}: fused multiply-add in SASS: {out}")
+    if any(info.get("local") or info.get("stack") for info in out.values()):
+        raise AssertionError(f"{name}: spills to local memory / stack: {out}")
+    if name == "pairhmm_ppe":
+        want = {f"ppe_k{k}{c}" for k in range(1, 9) for c in ("", "_carry")}
+        if not want <= set(out):
+            raise AssertionError(f"{name}: missing instances {want - set(out)}")
     return out
 
 
@@ -260,9 +281,11 @@ def phase_kernels():
     pairs) and the NumPy oracle (bit for bit, 64 sampled pairs), and every
     striped H instance against the ppe kernel (bit for bit, all pairs), at
     every (r_pad, c_pad) of the default buckets and at LONG_SHAPE, B = the
-    runner's group size.  The default H is also held against the striped
-    plain version and the oracle at every shape; every H against its plain
-    version at REPORT_SHAPE."""
+    runner's group size, and at CARRY_SHAPE, B a quarter of it.  The
+    default H is also held against the striped plain version and the
+    oracle at every shape; every H against its plain version at
+    REPORT_SHAPE.  Each ppe row carries its launch shape (rows per lane,
+    stripes, warps per block, blocks per SM)."""
     import numpy as np
     import torch
 
@@ -272,15 +295,17 @@ def phase_kernels():
     from gatk_hc_tpu_torch.ops.pairhmm_oracle import pairhmm_prob
     from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
 
-    B = TorchPairHMMRunner.GROUP_PAIRS
+    group = TorchPairHMMRunner.GROUP_PAIRS
     trans = pt.transition_constants(DEFAULT_CONFIG.gop_char,
                                     DEFAULT_CONFIG.gcp_char)
     default_h = DEFAULT_CONFIG.stripe_height
     shapes = [(r, c) for r in DEFAULT_CONFIG.read_pad_buckets
-              for c in DEFAULT_CONFIG.hap_pad_buckets] + [LONG_SHAPE]
+              for c in DEFAULT_CONFIG.hap_pad_buckets]
+    shapes += [LONG_SHAPE, CARRY_SHAPE]
     rng = np.random.default_rng(20261016)
     results = {}
     for r_pad, c_pad in shapes:
+        B = group // 4 if (r_pad, c_pad) == CARRY_SHAPE else group
         read, qual, rlen, hap, clen = make_pairs(rng, B, r_pad, c_pad)
         args = kernel_inputs(read, qual, rlen, hap, clen, "cuda")
         plain, plain_ms = timed_once(lambda: pt.ppe_forward_plain(*args, trans))
@@ -339,6 +364,7 @@ def phase_kernels():
             assert pt.select_rows(nr, r_pad) == nr
             ppe_out[nr] = pt.ppe_forward(*args, trans, nr)
             row = check(f"ppe{nr}", ppe_out[nr], plain, plain_ms)
+            row.update(pt.ppe_launch_shape(r_pad, c_pad, nr))
             timed(row, lambda: pt.ppe_forward(*args, trans, nr))
 
         # striped: every H against the ppe kernel (NR 4, the default); the
@@ -519,6 +545,7 @@ def main() -> int:
             "library_ms": None,
             "shape": {"B": rep["B"], "r_pad": rep["r_pad"],
                       "c_pad": rep["c_pad"]},
+            **{k: rep[k] for k in LAUNCH_KEYS if k in rep},
         })
     print(smi, flush=True)
     emit({"kernels": lines})

@@ -5,9 +5,10 @@ package ``gatk_hc_tpu``, which stays the reference it is held against:
 
 * host runtime (C++ via ctypes, the package's own copy): SAM/FASTA
   parsing, read filters/clipping, De Bruijn assembly, Smith-Waterman;
-* device engine (PyTorch + a hand-written CUDA kernel for Hopper): the
+* device engine (PyTorch + hand-written CUDA kernels for Hopper): the
   PairHMM forward over batches of (read, haplotype) pairs
-  (ops/pairhmm_torch.py, csrc/pairhmm_ppe.cu);
+  (ops/pairhmm_torch.py, csrc/pairhmm_ppe.cu; ops/pairhmm_striped.py,
+  csrc/pairhmm_striped.cu);
 * orchestration (Python): region scheduling, cross-region batching
   (ops/runner.py), genotyping, VCF emission.
 

@@ -82,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--pallas-algo", default=DEFAULT_CONFIG.pallas_algo,
         choices=("ppe", "striped"),
-        help="CUDA PairHMM kernel of --pairhmm cuda: ppe (one thread per "
+        help="CUDA PairHMM kernel of --pairhmm cuda: ppe (one warp per "
         "pair, the default) or striped (a warp's lanes sweep stripes of a "
         "pair's rows); both give the same result",
     )
@@ -93,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--ppe-rows", type=int, default=DEFAULT_CONFIG.ppe_rows,
-        choices=(1, 2, 4, 8), help="rows one thread sweeps together in the "
-        "ppe kernel (every value gives the same result)",
+        choices=(1, 2, 4, 8), help="the fewest read rows one lane of the "
+        "ppe kernel holds (every value gives the same result)",
     )
     parser.add_argument("--seed", type=int, default=DEFAULT_CONFIG.downsample_seed)
     parser.add_argument("--region-size", type=int, default=DEFAULT_CONFIG.region_size)

@@ -123,12 +123,13 @@ class HCConfig:
     # f32 pairs get a provably VCF-neutral stand-in vs the reference's exact
     # float64 recomputation (see ops/pairhmm_oracle.py::RESCUE_SENTINEL_LOG10)
     sw_engine: str = "native"              # "native" | "python"
-    # Rows swept together by one thread of the ppe kernel (1, 2, 4 or 8).
-    # Every value computes bit-identical results; a padded read length that
-    # is not a multiple of it drops to the largest that divides it.
+    # NR of the ppe kernel (1, 2, 4 or 8): the fewest read rows one lane
+    # holds (it holds max(NR, ceil(r_pad / 32)), at most 8).  Every value
+    # computes bit-identical results; a padded read length that is not a
+    # multiple of it drops to the largest that divides it.
     ppe_rows: int = 4
     # PairHMM kernel of the cuda engine: "ppe" (csrc/pairhmm_ppe.cu, one
-    # thread per pair) or "striped" (csrc/pairhmm_striped.cu, H lanes per
+    # warp per pair) or "striped" (csrc/pairhmm_striped.cu, H lanes per
     # pair sweeping stripes of stripe_height rows).  Both compute the same
     # result bit for bit; padded read lengths round up to a multiple of
     # stripe_height on the striped path.  The names and defaults are the

@@ -1,9 +1,11 @@
-// PairHMM forward, pair-per-thread ("ppe") kernel for Hopper (sm_90a).
+// PairHMM forward, warp-per-pair ("ppe") kernel for Hopper (sm_90a).
 //
 // Replaces the TPU kernel family gatk_hc_tpu/ops/pairhmm_pallas.py::
 // _kernel_ppe (NR=1), _kernel_ppe2 (NR=2) and _make_kernel_ppe_multi(NR)
 // (_kernel_ppe4, _kernel_ppe8) behind _pallas_call_ppe.  One template over
-// NR covers all four.
+// K, the read rows each lane holds, covers all four: the launcher takes
+// K = min(8, max(NR, ceil(r_pad / 32))) (ops/pairhmm_torch.py::
+// rows_per_lane), so NR is a floor on K.
 //
 // What it computes, per (read, hap) pair b: the raw f32 forward probability
 // (scaled by INITIAL_CONSTANT) of the reference's main-path PairHMM,
@@ -14,32 +16,47 @@
 //     Y = M_left*p_my + Y_left*p_yy
 // and dist = (read_mask & hap_mask) ? (1-q) : q/3 (N = 15 matches all).
 //
-// Design.  One thread owns one pair and sweeps its DP matrix row-major, NR
-// rows at a time: rows r..r+NR-1 walk the columns together, so rows 2..NR
-// take their "up" values from the registers of the row above and only the
-// group's last row goes back to memory.  The row-above M/X/Y of the group
-// live in (c_pad, B) f32 scratch in device memory, pair-minor so a warp's
-// 32 loads of one column coalesce into one 128-byte transaction; the read
-// planes (r_pad, 3, B) and hap masks (c_pad, B) are pair-minor for the same
-// reason.  A thread stops at its own pair's rlen (rounded up to NR) and
-// clen: cells past them never feed a captured cell, so the result is the
-// same as the TPU kernel's full padded sweep.  Each column step loads the
-// next column's hap mask and row-above values before it stores its own,
-// so the loads' latency overlaps the column's arithmetic.  Left to nvcc's
-// scheduling, small edits of the source made some NR instances issue a
-// load late in the column step and run about 7x slower (chip_smoke.py,
-// H100).
+// Design.  One warp owns one pair; the DP state never leaves the chip.  The
+// read is cut into stripes of 32 K rows (one stripe when r_pad <= 32 K,
+// which covers every read of the main path: K = 3..8 at r_pad 96..256).
+// Lane j holds rows j K + 1 .. j K + K of the stripe in registers (their
+// read mask, 1-q and q/3, and the previous column's M, X, Y of each row)
+// and, at wavefront step t, computes column c = t - j for its K rows top
+// to bottom: rows 2..K take "up" from the row just computed.  The lane's
+// top row takes "up" from lane j-1's bottom row, computed at step t-1, by
+// __shfl_up_sync (3 shuffles per K cells); its "diagonal" is that value of
+// the step before.  Lane 0 takes row 0 (M = X = 0, Y = init_y) in stripe 0
+// and the previous stripe's last row, which lane 31 left in shared memory
+// by column, in later stripes (read at step c, rewritten in place 31 steps
+// later; a __syncwarp() orders the stripes).  Before column 1 every lane
+// computes exact zeros from zero state, which are the column-0 boundary.
+// The pair's hap masks are staged once per pair into a per-warp shared
+// copy, 32 slots of padding on each side, so each step reads its column
+// with one conflict-free LDS.  The step loop runs clen + (the lane holding
+// row rlen) steps in the last stripe, clen + 31 in the others; the lanes
+// below row rlen compute cells nothing reads.  Row rlen's place in its
+// lane is warp-uniform (one pair per warp), so the step loop is
+// instantiated per place and adds exactly that row's M and X, in column
+// order, into two accumulators (zeros before column 1 add nothing); the
+// lane holding row rlen writes their sum.  No atomics, no reduction of
+// values across lanes.  Inputs are pair-minor (as the runner gathers
+// them); a block's warps take consecutive pairs, so the strided per-lane
+// loads of rows and hap masks share 32-byte sectors across its warps.
 //
-// What bounds it.  Per cell: 8 f32 multiplies and 4 f32 adds (kept
-// unfused, so each takes an instruction slot), one AND and one select;
-// row rlen adds its M and X to the two sums (2 adds per column, issued
-// predicated in every row of the last group).  Per column step of a row
-// group: 16 bytes read (hap mask + row-above M/X/Y) and 12 written, i.e.
-// 28/NR bytes per cell.  That scratch misses the 50 MB L2 at main-path
-// batch sizes; at one column step per memory round trip the kernel moves
-// ~1.2 TB/s of it on an H100 (chip_smoke.py), far above its operations
-// bound.  Keeping the row above on chip (shared memory, a warp-cooperative
-// tiling) is later work.
+// What bounds it.  Per step a lane issues 8 FMUL and 4 FADD per row, kept
+// unfused for exactness, and the mask AND and select per row; per step, 3
+// shuffles, one LDS, the lane-0 selects, 2 capture adds and the loop (the
+// step loop is unrolled twice at K <= 5, which drops the register moves
+// between steps).  So it is bound by instruction issue, not by device
+// memory: each pair's inputs are read once and only its result is
+// written.  Lanes wait up to 31 steps at the start of a stripe, and rows
+// past rlen are computed up to the next multiple of 32 K.  On an NVIDIA
+// H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md has every shape): K = 5
+// (NR 4, r_pad 160, c_pad 448, B = 65,536 pairs) takes 2.33 ms per launch,
+// 22.5% of the 0.524 ms operations bound; the pair-per-thread kernel this
+// one replaced, with its row above in device memory (~1.2 TB/s of scratch
+// traffic), took 16.77 ms.  K = 4 uses 56 registers, K = 5 64, K = 8 72
+// (89 with the carry), with no local memory or stack.
 //
 // Exactness.  Built with -fmad=false (no mul+add contraction) and
 // -ftz=true (the reference is flush-to-zero; every input to a cell is a
@@ -47,170 +64,339 @@
 // input flush changes nothing).  The multiplies and adds are also written
 // with __fmul_rn/__fadd_rn, which are never contracted.  No division: q/3
 // and INITIAL/haplen come from the host, and the omq/q3 planes hold f32
-// bits in i32 (reinterpreted with __int_as_float, never converted).  Row
-// rlen is summed in column order into two accumulators that are added at
-// the end; no atomics, no warp reductions.
+// bits in i32 (reinterpreted with __int_as_float, never converted).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int LANES = 32;
+constexpr int MAX_K = 8;
+constexpr int MAX_WARPS = 4;  // pairs per block
+constexpr int HAP_PAD = 32;   // zero slots before column 1 and after c_pad
+constexpr int DEFAULT_SMEM = 48 * 1024;
+
 struct Trans {
   float p_mm, p_gapm, p_mx, p_xx, p_my, p_yy;
 };
 
-template <int NR>
-__global__ void __launch_bounds__(128)
+// Shared memory per warp, in 4-byte words: the hap masks with their
+// padding, and (multi-stripe launches only) the carried row's M, X, Y by
+// column 0..c_pad.
+inline __host__ __device__ int hap_words(int c_pad) {
+  return c_pad + 2 * HAP_PAD;
+}
+inline __host__ __device__ int carry_words(int c_pad) {
+  return 3 * (c_pad + 1);
+}
+
+// One stripe of one pair: `steps` wavefront steps over the lane's K rows.
+// QC is the place of row rlen in its lane (warp-uniform); every lane sums
+// its row QC, and only the lane holding row rlen in the last stripe
+// reports it.  With CARRY, lane 0 of a later stripe (carry_in) reads the
+// previous stripe's last row and lane 31 of a stripe that has a successor
+// (carry_out) writes its bottom row, both by column.
+template <int K, int QC, bool CARRY>
+__device__ __forceinline__ void sweep(
+    const int32_t* __restrict__ hs, const int (&rs)[K],
+    const float (&omq)[K], const float (&q3)[K], float* cm, float* cx,
+    float* cy, bool carry_in, bool carry_out, int steps, int cl, int lane,
+    float iy, Trans tr, float& acc_m, float& acc_x) {
+  float md[K], xd[K], yd[K], ml[K], yl[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    md[q] = xd[q] = yd[q] = ml[q] = yl[q] = 0.0f;
+  }
+  // Y(0, 0) = init_y is row 1's only nonzero diagonal input at column 1
+  if (lane == 0 && !carry_in) yd[0] = iy;
+  float mo = 0.0f, xo = 0.0f, yo = 0.0f;  // bottom row, previous step
+  acc_m = 0.0f;
+  acc_x = 0.0f;
+  // Unrolled twice at K <= 5, which saves the moves that rename the
+  // carried registers between steps (2-9% faster on an H100); at K = 6
+  // and 8 it measured slower and at K = 7 no faster, so those keep one
+  // step per iteration (gatk_hc_tpu_torch/tools/ppe_variants.py).
+#pragma unroll(K <= 5 ? 2 : 1)
+  for (int step = 1; step <= steps; ++step) {
+    const int hw = hs[step];  // this lane's column step - lane
+    float MA = __shfl_up_sync(FULL, mo, 1);
+    float XA = __shfl_up_sync(FULL, xo, 1);
+    float YA = __shfl_up_sync(FULL, yo, 1);
+    if (lane == 0) {
+      if (CARRY && carry_in) {
+        const bool in = step <= cl;  // lane 0's column is step
+        MA = in ? cm[step] : 0.0f;
+        XA = in ? cx[step] : 0.0f;
+        YA = in ? cy[step] : 0.0f;
+      } else {  // row 0
+        MA = 0.0f;
+        XA = 0.0f;
+        YA = iy;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const float dist = (rs[q] & hw) != 0 ? omq[q] : q3[q];
+      const float t1 = __fmul_rn(md[q], tr.p_mm);
+      const float t2 = __fmul_rn(xd[q], tr.p_gapm);
+      const float t3 = __fmul_rn(yd[q], tr.p_gapm);
+      const float M = __fmul_rn(__fadd_rn(__fadd_rn(t1, t2), t3), dist);
+      const float X =
+          __fadd_rn(__fmul_rn(MA, tr.p_mx), __fmul_rn(XA, tr.p_xx));
+      const float Y =
+          __fadd_rn(__fmul_rn(ml[q], tr.p_my), __fmul_rn(yl[q], tr.p_yy));
+      if (q == QC) {
+        acc_m = __fadd_rn(acc_m, M);
+        acc_x = __fadd_rn(acc_x, X);
+      }
+      // this row's "up" cell is the next column's diagonal
+      md[q] = MA;
+      xd[q] = XA;
+      yd[q] = YA;
+      ml[q] = M;
+      yl[q] = Y;
+      MA = M;
+      XA = X;
+      YA = Y;
+    }
+    mo = MA;
+    xo = XA;
+    yo = YA;
+    if (CARRY && carry_out && lane == LANES - 1 && step >= LANES) {
+      const int c = step - (LANES - 1);  // 1..cl: lane 31 runs to clen
+      cm[c] = mo;
+      cx[c] = xo;
+      cy[c] = yo;
+    }
+  }
+}
+
+// sweep<K, qc, CARRY> for a runtime, warp-uniform qc in 0..K-1.
+template <int K, bool CARRY, int QC = 0>
+__device__ __forceinline__ void sweep_at(
+    int qc, const int32_t* __restrict__ hs, const int (&rs)[K],
+    const float (&omq)[K], const float (&q3)[K], float* cm, float* cx,
+    float* cy, bool carry_in, bool carry_out, int steps, int cl, int lane,
+    float iy, Trans tr, float& acc_m, float& acc_x) {
+  if constexpr (QC + 1 < K) {
+    if (qc != QC) {
+      sweep_at<K, CARRY, QC + 1>(qc, hs, rs, omq, q3, cm, cx, cy, carry_in,
+                                 carry_out, steps, cl, lane, iy, tr, acc_m,
+                                 acc_x);
+      return;
+    }
+  }
+  sweep<K, QC, CARRY>(hs, rs, omq, q3, cm, cx, cy, carry_in, carry_out,
+                      steps, cl, lane, iy, tr, acc_m, acc_x);
+}
+
+template <int K, bool CARRY>
+__global__ void __launch_bounds__(LANES * MAX_WARPS)
 ppe_forward_kernel(const int32_t* __restrict__ rows,   // (r_pad, 3, B)
                    const int32_t* __restrict__ hap,    // (c_pad, B)
                    const int32_t* __restrict__ rlen,   // (B,)
                    const int32_t* __restrict__ clen,   // (B,)
                    const float* __restrict__ init_y,   // (B,)
-                   float* __restrict__ mbuf,           // (c_pad, B) scratch
-                   float* __restrict__ xbuf,
-                   float* __restrict__ ybuf,
                    float* __restrict__ out,            // (B,)
-                   int B, int r_pad, int c_pad, Trans t) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+                   int B, int r_pad, int c_pad, Trans tr) {
+  extern __shared__ int32_t smem[];
+  const int lane = threadIdx.x % LANES;
+  const int warp = threadIdx.x / LANES;
+  const int warps = blockDim.x / LANES;
+  const int64_t b = (int64_t)blockIdx.x * warps + warp;
+  if (b >= B) return;  // the whole warp: one pair per warp
   const int64_t stride = B;
   const int rl = rlen[b];
-  const int cl = min(clen[b], c_pad);
+  const int cl = max(0, min(clen[b], c_pad));
   const float iy = init_y[b];
-
-  // a read length outside 1..r_pad captures no row: the TPU kernel's
-  // row mask never fires and it returns 0
+  // a read length outside 1..r_pad captures no row: the TPU kernel's row
+  // mask never fires and it returns 0
   if (rl < 1 || rl > r_pad) {
-    out[b] = 0.0f;
+    if (lane == 0) out[b] = 0.0f;
     return;
   }
 
-  // row 0: M = X = 0, Y = init_y in every column
-  for (int c = 0; c < cl; ++c) {
-    mbuf[c * stride + b] = 0.0f;
-    xbuf[c * stride + b] = 0.0f;
-    ybuf[c * stride + b] = iy;
+  // hap mask of column c (1-based) at slot HAP_PAD - 1 + c; zeros around
+  int32_t* hap_s = smem + warp * hap_words(c_pad);
+  for (int i = lane; i < hap_words(c_pad); i += LANES) {
+    const int col = i - HAP_PAD;
+    hap_s[i] = col >= 0 && col < cl ? hap[col * stride + b] : 0;
   }
+  float* cm = nullptr;
+  float* cx = nullptr;
+  float* cy = nullptr;
+  if (CARRY) {
+    cm = reinterpret_cast<float*>(smem + warps * hap_words(c_pad)) +
+         warp * carry_words(c_pad);
+    cx = cm + (c_pad + 1);
+    cy = cx + (c_pad + 1);
+  }
+  __syncwarp();
+  const int32_t* hs = hap_s + HAP_PAD - 1 - lane;  // hs[t]: column t - lane
 
-  float a_m = 0.0f, a_x = 0.0f;
-  const int n_groups = (rl + NR - 1) / NR;
-  for (int g = 0; g < n_groups; ++g) {
-    const int r0 = g * NR + 1;  // matrix row of the group's first row
-    int rs[NR];
-    float omq[NR], q3[NR];
+  constexpr int S = LANES * K;  // rows per stripe
+  const int n_stripes = CARRY ? (rl + S - 1) / S : 1;
+  const int last = rl - 1 - (n_stripes - 1) * S;  // row rlen in its stripe
+  const int jr = last / K;  // the lane holding it
+  const int qc = last % K;  // its place in that lane
+  float acc_m = 0.0f, acc_x = 0.0f;
+  for (int s = 0; s < n_stripes; ++s) {
+    int rs[K];
+    float omq[K], q3[K];
 #pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      const int64_t base = (int64_t)(r0 - 1 + q) * 3 * stride + b;
-      rs[q] = rows[base];
-      omq[q] = __int_as_float(rows[base + stride]);
-      q3[q] = __int_as_float(rows[base + 2 * stride]);
-    }
-    float md[NR], xd[NR], yd[NR], ml[NR], yl[NR];
-#pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      md[q] = xd[q] = yd[q] = ml[q] = yl[q] = 0.0f;
-    }
-    const int qc = rl - r0;  // row rlen's place in this group, if it is here
-    // Y(0, 0) = init_y is row 1's only nonzero diagonal input at column 1
-    if (r0 == 1) yd[0] = iy;
-
-    int hw = hap[b];
-    float ma = mbuf[b], xa = xbuf[b], ya = ybuf[b];
-    // Not unrolled: in a first version without the prefetch, nvcc's
-    // default unrolling of this loop made NR=1 2.4x and NR=4 6.7x slower
-    // on an H100 (same results; chip_smoke.py).
-#pragma unroll 1
-    for (int c = 0; c < cl; ++c) {
-      const int64_t at = c * stride + b;
-      // the next column's inputs, loaded before this column's stores (the
-      // last column reloads itself; that value is never used)
-      const int64_t nx = (int64_t)min(c + 1, cl - 1) * stride + b;
-      const int hw_n = hap[nx];
-      const float ma_n = mbuf[nx], xa_n = xbuf[nx], ya_n = ybuf[nx];
-      float MA = ma, XA = xa, YA = ya;  // the row above, per column
-#pragma unroll
-      for (int q = 0; q < NR; ++q) {
-        const float dist = (rs[q] & hw) != 0 ? omq[q] : q3[q];
-        const float t1 = __fmul_rn(md[q], t.p_mm);
-        const float t2 = __fmul_rn(xd[q], t.p_gapm);
-        const float t3 = __fmul_rn(yd[q], t.p_gapm);
-        const float M = __fmul_rn(__fadd_rn(__fadd_rn(t1, t2), t3), dist);
-        const float X =
-            __fadd_rn(__fmul_rn(MA, t.p_mx), __fmul_rn(XA, t.p_xx));
-        const float Y =
-            __fadd_rn(__fmul_rn(ml[q], t.p_my), __fmul_rn(yl[q], t.p_yy));
-        if (q == qc) {
-          a_m = __fadd_rn(a_m, M);
-          a_x = __fadd_rn(a_x, X);
-        }
-        // this row's "up" cell is the next column's diagonal
-        md[q] = MA;
-        xd[q] = XA;
-        yd[q] = YA;
-        ml[q] = M;
-        yl[q] = Y;
-        MA = M;
-        XA = X;
-        YA = Y;
+    for (int q = 0; q < K; ++q) {
+      const int r = s * S + lane * K + q;  // 0-based read row
+      rs[q] = 0;
+      omq[q] = q3[q] = 0.0f;
+      if (r < rl) {
+        const int64_t base = (int64_t)r * 3 * stride + b;
+        rs[q] = rows[base];
+        omq[q] = __int_as_float(rows[base + stride]);
+        q3[q] = __int_as_float(rows[base + 2 * stride]);
       }
-      mbuf[at] = MA;
-      xbuf[at] = XA;
-      ybuf[at] = YA;
-      hw = hw_n;
-      ma = ma_n;
-      xa = xa_n;
-      ya = ya_n;
     }
+    const bool more = s + 1 < n_stripes;
+    const int steps = cl + (more ? LANES - 1 : jr);
+    sweep_at<K, CARRY>(qc, hs, rs, omq, q3, cm, cx, cy, s > 0, more, steps,
+                       cl, lane, iy, tr, acc_m, acc_x);
+    if (CARRY) __syncwarp();
   }
-  out[b] = __fadd_rn(a_m, a_x);
+  if (lane == jr) out[b] = __fadd_rn(acc_m, acc_x);
 }
 
-template <int NR>
+// Blocks of up to MAX_WARPS warps (pairs), fewer when their shared memory
+// would exceed the default 48 KB; a single warp that needs more raises the
+// kernel's limit, up to the card's opt-in maximum.
+template <int K, bool CARRY>
+cudaError_t configure(int c_pad, int* warps_out, size_t* smem_out) {
+  const size_t per_warp =
+      sizeof(int32_t) *
+      (size_t)(hap_words(c_pad) + (CARRY ? carry_words(c_pad) : 0));
+  int warps = MAX_WARPS;
+  while (warps > 1 && warps * per_warp > DEFAULT_SMEM) warps /= 2;
+  const size_t smem = warps * per_warp;
+  if (smem > DEFAULT_SMEM) {
+    int limit = 0, dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (smem > (size_t)limit) return cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(ppe_forward_kernel<K, CARRY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  *warps_out = warps;
+  *smem_out = smem;
+  return cudaSuccess;
+}
+
+template <int K, bool CARRY>
 cudaError_t launch(const int32_t* rows, const int32_t* hap,
                    const int32_t* rlen, const int32_t* clen,
-                   const float* init_y, float* mbuf, float* xbuf,
-                   float* ybuf, float* out, int B, int r_pad, int c_pad,
-                   Trans t, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  ppe_forward_kernel<NR><<<blocks, threads, 0, stream>>>(
-      rows, hap, rlen, clen, init_y, mbuf, xbuf, ybuf, out, B, r_pad, c_pad,
-      t);
+                   const float* init_y, float* out, int B, int r_pad,
+                   int c_pad, Trans tr, cudaStream_t stream) {
+  int warps = 0;
+  size_t smem = 0;
+  const cudaError_t err = configure<K, CARRY>(c_pad, &warps, &smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (B + warps - 1) / warps;
+  ppe_forward_kernel<K, CARRY><<<blocks, LANES * warps, smem, stream>>>(
+      rows, hap, rlen, clen, init_y, out, B, r_pad, c_pad, tr);
   return cudaGetLastError();
+}
+
+template <int K, bool CARRY>
+cudaError_t shape(int c_pad, int* out) {
+  int warps = 0, blocks = 0;
+  size_t smem = 0;
+  cudaError_t err = configure<K, CARRY>(c_pad, &warps, &smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, ppe_forward_kernel<K, CARRY>, LANES * warps, smem);
+  out[0] = warps;
+  out[1] = (int)smem;
+  out[2] = blocks;
+  return err;
+}
+
+// The instance for k and r_pad: CARRY when one stripe of 32 k rows does
+// not cover r_pad.
+template <int K>
+cudaError_t launch_k(const int32_t* rows, const int32_t* hap,
+                     const int32_t* rlen, const int32_t* clen,
+                     const float* init_y, float* out, int B, int r_pad,
+                     int c_pad, Trans tr, cudaStream_t stream) {
+  if (r_pad > LANES * K)
+    return launch<K, true>(rows, hap, rlen, clen, init_y, out, B, r_pad,
+                           c_pad, tr, stream);
+  return launch<K, false>(rows, hap, rlen, clen, init_y, out, B, r_pad,
+                          c_pad, tr, stream);
+}
+
+template <int K>
+cudaError_t shape_k(int r_pad, int c_pad, int* out) {
+  return r_pad > LANES * K ? shape<K, true>(c_pad, out)
+                           : shape<K, false>(c_pad, out);
 }
 
 }  // namespace
 
+// Raw forward probabilities of B pairs into out (B,) f32, k read rows per
+// lane (1..8).  Returns a CUDA error code (cudaErrorInvalidValue for a bad
+// k or shape, cudaErrorInvalidConfiguration when one warp's shared memory
+// does not fit), 0 on success.
 extern "C" int pairhmm_ppe_forward(const void* rows, const void* hap,
                                    const void* rlen, const void* clen,
-                                   const void* init_y, void* mbuf,
-                                   void* xbuf, void* ybuf, void* out, int B,
-                                   int r_pad, int c_pad, int nr, float p_mm,
+                                   const void* init_y, void* out, int B,
+                                   int r_pad, int c_pad, int k, float p_mm,
                                    float p_gapm, float p_mx, float p_xx,
                                    float p_my, float p_yy, void* stream) {
   if (B <= 0) return 0;
+  if (r_pad <= 0 || c_pad <= 0 || k < 1 || k > MAX_K)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Trans t{p_mm, p_gapm, p_mx, p_xx, p_my, p_yy};
   auto* r = static_cast<const int32_t*>(rows);
   auto* h = static_cast<const int32_t*>(hap);
   auto* rl = static_cast<const int32_t*>(rlen);
   auto* cl = static_cast<const int32_t*>(clen);
   auto* iy = static_cast<const float*>(init_y);
-  auto* m = static_cast<float*>(mbuf);
-  auto* x = static_cast<float*>(xbuf);
-  auto* y = static_cast<float*>(ybuf);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (nr) {
-    case 1:
-      return launch<1>(r, h, rl, cl, iy, m, x, y, o, B, r_pad, c_pad, t, s);
-    case 2:
-      return launch<2>(r, h, rl, cl, iy, m, x, y, o, B, r_pad, c_pad, t, s);
-    case 4:
-      return launch<4>(r, h, rl, cl, iy, m, x, y, o, B, r_pad, c_pad, t, s);
-    case 8:
-      return launch<8>(r, h, rl, cl, iy, m, x, y, o, B, r_pad, c_pad, t, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  switch (k) {
+    case 1: return launch_k<1>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    case 2: return launch_k<2>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    case 3: return launch_k<3>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    case 4: return launch_k<4>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    case 5: return launch_k<5>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    case 6: return launch_k<6>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    case 7: return launch_k<7>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    case 8: return launch_k<8>(r, h, rl, cl, iy, o, B, r_pad, c_pad, t, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch shape pairhmm_ppe_forward uses at (r_pad, c_pad, k): out[0]
+// warps (pairs) per block, out[1] dynamic shared memory per block in bytes,
+// out[2] resident blocks per SM.  Returns a CUDA error code, 0 on success.
+extern "C" int pairhmm_ppe_launch_shape(int r_pad, int c_pad, int k,
+                                        void* out) {
+  auto* o = static_cast<int*>(out);
+  if (r_pad <= 0 || c_pad <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (k) {
+    case 1: return shape_k<1>(r_pad, c_pad, o);
+    case 2: return shape_k<2>(r_pad, c_pad, o);
+    case 3: return shape_k<3>(r_pad, c_pad, o);
+    case 4: return shape_k<4>(r_pad, c_pad, o);
+    case 5: return shape_k<5>(r_pad, c_pad, o);
+    case 6: return shape_k<6>(r_pad, c_pad, o);
+    case 7: return shape_k<7>(r_pad, c_pad, o);
+    case 8: return shape_k<8>(r_pad, c_pad, o);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

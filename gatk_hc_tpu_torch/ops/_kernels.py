@@ -103,17 +103,21 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _bind_pairhmm_ppe(lib: ctypes.CDLL) -> None:
+    """The warp-per-pair kernel: no scratch argument, its DP state stays
+    in registers and shared memory; ``k`` is the read rows per lane."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.pairhmm_ppe_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [
         vp, vp, vp, vp, vp,  # rows, hap, rlen, clen, init_y
-        vp, vp, vp,  # mbuf, xbuf, ybuf scratch
         vp,  # out
-        i, i, i, i,  # B, r_pad, c_pad, nr
+        i, i, i, i,  # B, r_pad, c_pad, k
         f, f, f, f, f, f,  # p_mm, p_gapm, p_mx, p_xx, p_my, p_yy
         vp,  # cudaStream_t
     ]
+    shape = lib.pairhmm_ppe_launch_shape
+    shape.restype = ctypes.c_int
+    shape.argtypes = [i, i, i, vp]  # r_pad, c_pad, k, int[3] out
 
 
 def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:

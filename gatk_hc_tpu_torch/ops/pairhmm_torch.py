@@ -3,9 +3,11 @@ PyTorch version, and the planes-path glue around them.
 
 The kernel (csrc/pairhmm_ppe.cu) replaces the TPU kernel family
 gatk_hc_tpu/ops/pairhmm_pallas.py::_kernel_ppe / _kernel_ppe2 /
-_make_kernel_ppe_multi(NR) behind _pallas_call_ppe: one thread per
-(read, hap) pair sweeping its DP matrix NR rows at a time.  Its inputs are
-pair-minor (the last axis is the pair), so a warp's loads coalesce:
+_make_kernel_ppe_multi(NR) behind _pallas_call_ppe: one warp per
+(read, hap) pair, K read rows per lane (``rows_per_lane``, with NR as its
+floor), the wavefront across the lanes and the DP state in registers and
+shared memory.  Its inputs are pair-minor (the last axis is the pair), as
+the runner gathers them; a block's warps take consecutive pairs:
 
 * ``rows``  (r_pad, 3, B) i32 — per read row: base mask, f32 bits of
   1 - q, f32 bits of q / 3;
@@ -22,6 +24,7 @@ ops/pairhmm_striped.py), so the tests compare like with like.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
@@ -247,6 +250,24 @@ def select_rows(ppe_rows: int, r_pad: int) -> int:
     return 1
 
 
+WARP_LANES = 32
+MAX_ROWS_PER_LANE = 8
+
+
+def rows_per_lane(nr: int, r_pad: int) -> int:
+    """K, the read rows each lane of the ppe kernel holds: enough for one
+    warp to cover r_pad in one stripe of 32 K rows, at least NR (so the
+    --ppe-rows instances stay distinct launches) and at most 8 (registers).
+    -> 4 / 5 / 7 at the buckets 96 / 160 / 224 with NR 4."""
+    return min(MAX_ROWS_PER_LANE, max(nr, -(-r_pad // WARP_LANES)))
+
+
+def ppe_stripes(k: int, r_pad: int) -> int:
+    """Stripes of 32 k rows the ppe kernel needs to cover r_pad; above one,
+    each stripe's last row is carried to the next in shared memory."""
+    return -(-r_pad // (WARP_LANES * k))
+
+
 def _check_inputs(rows, hap, rlen, clen, init_y) -> None:
     if rows.dim() != 3 or rows.shape[1] != 3:
         raise ValueError(f"rows must be (r_pad, 3, B), got {tuple(rows.shape)}")
@@ -272,9 +293,10 @@ def _check_inputs(rows, hap, rlen, clen, init_y) -> None:
 def ppe_forward(rows, hap, rlen, clen, init_y, trans, ppe_rows: int = 4):
     """Raw forward probabilities (B,) f32 for pair-minor kernel inputs.
 
-    CUDA tensors launch the CUDA kernel (NR from ``select_rows``) and
-    count the launch; CPU tensors run ``ppe_forward_plain``.  Does not
-    synchronise.  A failed build or launch raises."""
+    CUDA tensors launch the CUDA kernel (NR from ``select_rows``, rows per
+    lane from ``rows_per_lane``) and count the launch under ``ppe<NR>``;
+    CPU tensors run ``ppe_forward_plain``.  Does not synchronise and
+    allocates nothing but the result.  A failed build or launch raises."""
     _check_inputs(rows, hap, rlen, clen, init_y)
     if rows.device.type == "cpu":
         return ppe_forward_plain(rows, hap, rlen, clen, init_y, trans)
@@ -287,11 +309,10 @@ def ppe_forward(rows, hap, rlen, clen, init_y, trans, ppe_rows: int = 4):
     c_pad = hap.shape[0]
     nr = select_rows(ppe_rows, r_pad)
     out = torch.empty(B, dtype=torch.float32, device=rows.device)
-    scratch = torch.empty((3, c_pad, B), dtype=torch.float32, device=rows.device)
     err = lib.pairhmm_ppe_forward(
         rows.data_ptr(), hap.data_ptr(), rlen.data_ptr(), clen.data_ptr(),
-        init_y.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        scratch[2].data_ptr(), out.data_ptr(), B, r_pad, c_pad, nr,
+        init_y.data_ptr(), out.data_ptr(), B, r_pad, c_pad,
+        rows_per_lane(nr, r_pad),
         *(float(t) for t in trans),
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
@@ -299,6 +320,24 @@ def ppe_forward(rows, hap, rlen, clen, init_y, trans, ppe_rows: int = 4):
         raise RuntimeError(f"pairhmm_ppe_forward launch failed: CUDA error {err}")
     LAUNCHES[f"ppe{nr}"] += 1
     return out
+
+
+def ppe_launch_shape(r_pad: int, c_pad: int, ppe_rows: int) -> Dict[str, int]:
+    """How ``ppe_forward`` launches at (r_pad, c_pad, ppe_rows) on the
+    current card: rows per lane, stripes, warps (pairs) per block, dynamic
+    shared memory per block (bytes) and the blocks an SM holds at once.
+    Needs a card."""
+    from . import _kernels
+
+    lib = _kernels.load("pairhmm_ppe")
+    k = rows_per_lane(select_rows(ppe_rows, r_pad), r_pad)
+    out = (ctypes.c_int * 3)()
+    err = lib.pairhmm_ppe_launch_shape(r_pad, c_pad, k, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"pairhmm_ppe_launch_shape: CUDA error {err}")
+    return {"rows_per_lane": k, "stripes": ppe_stripes(k, r_pad),
+            "warps_per_block": out[0], "smem_per_block": out[1],
+            "blocks_per_sm": out[2]}
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +409,8 @@ def forward_batch(read_codes, read_omq, read_q3, read_lens, hap_codes,
     shape: the reference's _ppe_eligible conditions (c_pad <= 640 and a
     multiple of 32, B a multiple of 1024, not interpret mode) are limits of
     the TPU's VMEM and (8, 128) tiling that the CUDA ppe kernel, which
-    keeps its row in device memory, does not have.  Every choice computes
-    the same result bit for bit."""
+    takes any B and stripes reads longer than 256 rows, does not have.
+    Every choice computes the same result bit for bit."""
     if algo not in ("ppe", "striped", "auto"):
         raise ValueError(f"unknown algo {algo!r}")
     read_codes = torch.as_tensor(read_codes)
