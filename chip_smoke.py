@@ -57,7 +57,9 @@ REPORT_SHAPE = (160, 448)
 # (c_pad > 640): both kernels are timed there
 LONG_SHAPE = (160, 768)
 # reads longer than 256 rows: the ppe kernel runs two stripes of 256 rows
-# and carries a row between them (off the main path: B cut to a quarter)
+# and carries a row between them, striped32 two of 160 (K 5) and striped8
+# two of 144 (K 18); striped16 runs one of 288 (K 18) (off the main path:
+# B cut to a quarter)
 CARRY_SHAPE = (288, 448)
 LAUNCH_KEYS = ("rows_per_lane", "stripes", "warps_per_block", "blocks_per_sm")
 
@@ -97,37 +99,70 @@ def phase_card():
     return smi
 
 
-def compiler_report(_kernels, name):
-    """Registers, stack, static shared and local memory per kernel
-    instantiation (the striped kernel's shared memory is dynamic: the
-    kernel phase reports it per shape), and the
-    f32 multiply / add / fused multiply-add instructions in its machine
-    code, read with cuobjdump from the library just built.  Raises on any
-    FFMA: the exactness rules forbid mul+add contraction."""
+def instance_name(mangled: str) -> str:
+    """A kernel instance's short name from its mangled symbol:
+    ppe_forward_kernel<5, false> -> "ppe_k5", <8, true> -> "ppe_k8_carry",
+    striped_forward_kernel<16, 10, false> -> "striped16_k10", <8, 16, true>
+    -> "striped8_k16_carry"."""
     import re
 
-    lib = _kernels.library_path(name)
+    m = re.search(r"striped_forward_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if m:
+        return (f"striped{m.group(1)}_k{m.group(2)}"
+                + ("_carry" if m.group(3) == "1" else ""))
+    m = re.search(r"ppe_forward_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"ppe_k{m.group(1)}" + ("_carry" if m.group(2) == "1" else "")
+    return mangled
+
+
+def expected_instances(name: str):
+    """Every instance a kernel library must hold: ppe K 1-8 with and
+    without the carry; striped per H, K 1..KMAX(H), and K > KMAX(H) / 2
+    with the carry (the rows-per-lane rule carries only there)."""
+    if name == "pairhmm_ppe":
+        return {f"ppe_k{k}{c}" for k in range(1, 9) for c in ("", "_carry")}
+    from gatk_hc_tpu_torch.ops.pairhmm_striped import MAX_ROWS_PER_LANE
+
+    return {f"striped{h}_k{k}{c}" for h, kmax in MAX_ROWS_PER_LANE.items()
+            for k in range(1, kmax + 1)
+            for c in ("", "_carry") if not c or 2 * k > kmax}
+
+
+def compiler_report(_kernels, name):
+    """Registers, stack, static shared and local memory per kernel
+    instantiation (shared memory is dynamic: the kernel phase reports it
+    per shape), and the f32 multiply / add / fused multiply-add
+    instructions in its machine code, read with cuobjdump from the library
+    just built.  Raises on any FFMA (the exactness rules forbid mul+add
+    contraction), on local memory or stack, and on a missing instance."""
+    out = instance_report(_kernels, _kernels.library_path(name))
+    if any(info.get("FFMA") for info in out.values()):
+        raise AssertionError(f"{name}: fused multiply-add in SASS: {out}")
+    if any(info.get("local") or info.get("stack") for info in out.values()):
+        raise AssertionError(f"{name}: spills to local memory / stack: {out}")
+    want = expected_instances(name)
+    if not want <= set(out):
+        raise AssertionError(f"{name}: missing instances {want - set(out)}")
+    return out
+
+
+def instance_report(_kernels, lib):
+    """{instance: registers, stack, shared, local, FMUL/FADD/FFMA count}
+    of the kernel library ``lib``, read with cuobjdump."""
+    import re
+
     tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
 
     def dump(flag):
         return subprocess.run([tool, flag, lib], capture_output=True,
                               text=True, check=True, timeout=120).stdout
 
-    def short(mangled):
-        """ppe_forward_kernel<5, false> -> "ppe_k5", <8, true> ->
-        "ppe_k8_carry", striped_forward_kernel<32> -> "striped32"."""
-        m = re.search(r"ILi(\d+)E(?:Lb([01])E)?", mangled)
-        if not m:
-            return mangled
-        if "striped" in mangled:
-            return f"striped{m.group(1)}"
-        return f"ppe_k{m.group(1)}" + ("_carry" if m.group(2) == "1" else "")
-
     out, fn = {}, None
     for line in dump("--dump-resource-usage").splitlines():
         m = re.search(r"Function (\S+?):?\s*$", line)
         if m:
-            fn = out.setdefault(short(m.group(1)), {})
+            fn = out.setdefault(instance_name(m.group(1)), {})
             continue
         for key in ("REG", "STACK", "SHARED", "LOCAL"):
             m = re.search(rf"\b{key}:(\d+)", line)
@@ -137,19 +172,11 @@ def compiler_report(_kernels, name):
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = out.setdefault(short(m.group(1)), {})
+            fn = out.setdefault(instance_name(m.group(1)), {})
             continue
         m = re.search(r"\b(FMUL|FADD|FFMA)\b", line)
         if m and fn is not None:
             fn[m.group(1)] = fn.get(m.group(1), 0) + 1
-    if any(info.get("FFMA") for info in out.values()):
-        raise AssertionError(f"{name}: fused multiply-add in SASS: {out}")
-    if any(info.get("local") or info.get("stack") for info in out.values()):
-        raise AssertionError(f"{name}: spills to local memory / stack: {out}")
-    if name == "pairhmm_ppe":
-        want = {f"ppe_k{k}{c}" for k in range(1, 9) for c in ("", "_carry")}
-        if not want <= set(out):
-            raise AssertionError(f"{name}: missing instances {want - set(out)}")
     return out
 
 
@@ -284,8 +311,8 @@ def phase_kernels():
     runner's group size, and at CARRY_SHAPE, B a quarter of it.  The
     default H is also held against the striped plain version and the
     oracle at every shape; every H against its plain version at
-    REPORT_SHAPE.  Each ppe row carries its launch shape (rows per lane,
-    stripes, warps per block, blocks per SM)."""
+    REPORT_SHAPE.  Each ppe and striped row carries its launch shape (rows
+    per lane, stripes, warps per block, blocks per SM)."""
     import numpy as np
     import torch
 
@@ -376,7 +403,7 @@ def phase_kernels():
             row = check(f"striped{h}", got, ppe_out[4], None,
                         oracle=h == default_h)
             row["bit_equal_ppe"] = row.pop("bit_equal_plain")
-            row.update(ps.launch_shape(c_pad, h))
+            row.update(ps.launch_shape(r_pad, c_pad, h))
             if h == default_h or (r_pad, c_pad) == REPORT_SHAPE:
                 splain, splain_ms = timed_once(
                     lambda: ps.striped_forward_plain(*sargs, trans, h))

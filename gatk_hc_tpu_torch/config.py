@@ -129,8 +129,8 @@ class HCConfig:
     # multiple of it drops to the largest that divides it.
     ppe_rows: int = 4
     # PairHMM kernel of the cuda engine: "ppe" (csrc/pairhmm_ppe.cu, one
-    # warp per pair) or "striped" (csrc/pairhmm_striped.cu, H lanes per
-    # pair sweeping stripes of stripe_height rows).  Both compute the same
+    # warp per pair) or "striped" (csrc/pairhmm_striped.cu, stripe_height
+    # lanes per pair, each holding K read rows).  Both compute the same
     # result bit for bit; padded read lengths round up to a multiple of
     # stripe_height on the striped path.  The names and defaults are the
     # reference package's, so a reference config carries them across.

@@ -121,6 +121,8 @@ def _bind_pairhmm_ppe(lib: ctypes.CDLL) -> None:
 
 
 def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
+    """The striped kernel: pair-major inputs, ``stripe`` lanes per pair and
+    ``k`` read rows per lane."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.pairhmm_striped_forward
     fn.restype = ctypes.c_int
@@ -128,13 +130,13 @@ def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp,  # read codes, omq, q3, hap codes
         vp, vp, vp,  # rlen, clen, init_y
         vp,  # out
-        i, i, i, i,  # B, r_pad, c_pad, stripe
+        i, i, i, i, i,  # B, r_pad, c_pad, stripe, k
         f, f, f, f, f, f,  # p_mm, p_gapm, p_mx, p_xx, p_my, p_yy
         vp,  # cudaStream_t
     ]
     shape = lib.pairhmm_striped_launch_shape
     shape.restype = ctypes.c_int
-    shape.argtypes = [i, i, vp]  # c_pad, stripe, int[3] out
+    shape.argtypes = [i, i, i, i, vp]  # r_pad, c_pad, stripe, k, int[3] out
 
 
 _BINDERS = {

@@ -4,8 +4,10 @@ its plain PyTorch version, and the raw-byte glue around them.
 The kernel (csrc/pairhmm_striped.cu) replaces the TPU kernel
 gatk_hc_tpu/ops/pairhmm_pallas.py::_kernel behind
 _pallas_forward(algo="striped"): H lanes of a warp own one (read, hap)
-pair and sweep its DP matrix in stripes of H rows along anti-diagonals,
-handing each stripe's last row to the next through shared memory.  It
+pair (a warp holds 32 / H pairs), each lane holds K consecutive read rows
+(``striped_rows_per_lane``), and the segment sweeps the DP matrix along
+anti-diagonals in stripes of H K rows, handing a stripe's last row to the
+next through shared memory when one stripe does not cover r_pad.  It
 computes the same function as the ppe kernel (ops/pairhmm_torch.py), bit
 for bit.  Its inputs are pair-major, as _pallas_forward takes them:
 
@@ -32,8 +34,28 @@ import torch
 
 from .pairhmm_torch import LAUNCHES, _flush
 
-# stripe heights the CUDA kernel is built for (one instance each)
+# stripe heights the CUDA kernel is built for
 KERNEL_STRIPES = (8, 16, 32)
+# the most read rows one lane holds, per stripe height (registers); the
+# kernel's KMAX_32 / KMAX_16 / KMAX_8
+MAX_ROWS_PER_LANE = {8: 28, 16: 20, 32: 8}
+
+
+def striped_rows_per_lane(stripe: int, r_pad: int, kmax: int = 0) -> int:
+    """K, the read rows each lane of the striped kernel holds: the fewest
+    stripes of ``stripe`` lanes with at most ``kmax`` rows each (default
+    MAX_ROWS_PER_LANE[stripe]) that cover r_pad, then the fewest rows per
+    lane that cover r_pad in that many stripes (no stripe computes more
+    rows than it must).  -> 3 / 5 / 7 at the buckets 96 / 160 / 224 with H
+    32 (one stripe); 6 / 10 / 14 with H 16 and 12 / 20 / 28 with H 8."""
+    stripes = -(-r_pad // (stripe * (kmax or MAX_ROWS_PER_LANE[stripe])))
+    return -(-r_pad // (stripe * stripes))
+
+
+def striped_stripes(stripe: int, k: int, r_pad: int) -> int:
+    """Stripes of ``stripe`` k rows the kernel needs to cover r_pad; above
+    one, each stripe's last row is carried to the next in shared memory."""
+    return -(-r_pad // (stripe * k))
 
 
 def striped_tables(base_table: np.ndarray, ph2pr_f32: np.ndarray):
@@ -182,7 +204,8 @@ def striped_forward(read_codes, read_omq, read_q3, hap_codes, rlen, clen,
     """Raw forward probabilities (B,) f32 for pair-major inputs.
 
     CUDA tensors launch the CUDA kernel for ``stripe`` (8, 16 or 32; it
-    must divide r_pad) and count the launch; CPU tensors run
+    must divide r_pad) with ``striped_rows_per_lane`` rows per lane and
+    count the launch under ``striped<stripe>``; CPU tensors run
     ``striped_forward_plain``.  Does not synchronise.  A failed build or
     launch raises.  A pair with rlen outside 1..r_pad gives 0.  The domain
     of clen is 1..c_pad (the runner never passes more; a larger clen sums
@@ -211,7 +234,7 @@ def striped_forward(read_codes, read_omq, read_q3, hap_codes, rlen, clen,
         read_codes.data_ptr(), read_omq.data_ptr(), read_q3.data_ptr(),
         hap_codes.data_ptr(), rlen.data_ptr(), clen.data_ptr(),
         init_y.data_ptr(), out.data_ptr(), B, r_pad, c_pad, stripe,
-        *(float(t) for t in trans),
+        striped_rows_per_lane(stripe, r_pad), *(float(t) for t in trans),
         torch.cuda.current_stream(read_codes.device).cuda_stream,
     )
     if err != 0:
@@ -222,18 +245,22 @@ def striped_forward(read_codes, read_omq, read_q3, hap_codes, rlen, clen,
     return out
 
 
-def launch_shape(c_pad: int, stripe: int) -> Dict[str, int]:
-    """How the kernel launches at ``c_pad`` on the current card: warps per
-    block, dynamic shared memory per block (bytes) and the blocks an SM
-    holds at once.  Needs a card."""
+def launch_shape(r_pad: int, c_pad: int, stripe: int) -> Dict[str, int]:
+    """How ``striped_forward`` launches at (r_pad, c_pad, stripe) on the
+    current card: rows per lane, stripes, warps per block, dynamic shared
+    memory per block (bytes) and the blocks an SM holds at once.  Needs a
+    card."""
     from . import _kernels
 
     lib = _kernels.load("pairhmm_striped")
+    k = striped_rows_per_lane(stripe, r_pad)
     out = (ctypes.c_int * 3)()
-    err = lib.pairhmm_striped_launch_shape(c_pad, stripe, ctypes.addressof(out))
+    err = lib.pairhmm_striped_launch_shape(r_pad, c_pad, stripe, k,
+                                           ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"pairhmm_striped_launch_shape: CUDA error {err}")
-    return {"warps_per_block": out[0], "smem_per_block": out[1],
+    return {"rows_per_lane": k, "stripes": striped_stripes(stripe, k, r_pad),
+            "warps_per_block": out[0], "smem_per_block": out[1],
             "blocks_per_sm": out[2]}
 
 
