@@ -7,8 +7,12 @@ Run from the root of a checkout.  It builds every CUDA kernel of the port
 from the checkout's sources, holds each kernel against its plain PyTorch
 version (and the NumPy oracle) at the shapes the main path gives it and
 at one shape with reads longer than 256 rows, then
-drives the port's main path — the CLI, SAM + FASTA -> VCF with the CUDA
-PairHMM, through the ppe kernel (the default) and the striped kernel
+holds the prologue kernel's two entry points (packed and nib shipping)
+against their plain versions at every bucket shape, then drives the port's
+main path — the CLI, SAM + FASTA -> VCF with the CUDA PairHMM behind the
+runner's dispatch worker, through the ppe kernel (the default, adaptive
+shipping), each shipping path (--dispatch-mode planes / packed, with and
+without --no-packed-nib, fused with --no-fuse-auto) and the striped kernel
 (--pallas-algo striped) — on the chrM fixture (byte-identical to the golden
 VCF) and on a 2 Mb contig at 30x (byte-identical to the port's native C++
 engine).
@@ -46,6 +50,12 @@ PPE_REPLACES = {
     2: "gatk_hc_tpu/ops/pairhmm_pallas.py:306",
     4: "gatk_hc_tpu/ops/pairhmm_pallas.py:588",
     8: "gatk_hc_tpu/ops/pairhmm_pallas.py:589",
+}
+PROLOGUE_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_prologue.cu"
+# the jnp glue each entry point replaces (not Pallas kernels)
+PROLOGUE_REPLACES = {
+    "prologue_packed": "gatk_hc_tpu/ops/pairhmm_pallas.py:1034",
+    "prologue_nib": "gatk_hc_tpu/ops/pairhmm_pallas.py:1254",
 }
 STRIPED_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_striped.cu"
 STRIPED_REPLACES = "gatk_hc_tpu/ops/pairhmm_pallas.py:59"
@@ -103,7 +113,7 @@ def instance_name(mangled: str) -> str:
     """A kernel instance's short name from its mangled symbol:
     ppe_forward_kernel<5, false> -> "ppe_k5", <8, true> -> "ppe_k8_carry",
     striped_forward_kernel<16, 10, false> -> "striped16_k10", <8, 16, true>
-    -> "striped8_k16_carry"."""
+    -> "striped8_k16_carry", prologue_nib_kernel -> "prologue_nib"."""
     import re
 
     m = re.search(r"striped_forward_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
@@ -113,6 +123,9 @@ def instance_name(mangled: str) -> str:
     m = re.search(r"ppe_forward_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"ppe_k{m.group(1)}" + ("_carry" if m.group(2) == "1" else "")
+    m = re.search(r"(prologue_(?:packed|nib))_kernel", mangled)
+    if m:
+        return m.group(1)
     return mangled
 
 
@@ -122,6 +135,8 @@ def expected_instances(name: str):
     with the carry (the rows-per-lane rule carries only there)."""
     if name == "pairhmm_ppe":
         return {f"ppe_k{k}{c}" for k in range(1, 9) for c in ("", "_carry")}
+    if name == "pairhmm_prologue":
+        return {"prologue_packed", "prologue_nib"}
     from gatk_hc_tpu_torch.ops.pairhmm_striped import MAX_ROWS_PER_LANE
 
     return {f"striped{h}_k{k}{c}" for h, kmax in MAX_ROWS_PER_LANE.items()
@@ -418,6 +433,105 @@ def phase_kernels():
     return results
 
 
+def prologue_group(rng, r_pad, c_pad):
+    """One main-path-sized group as the runner packs it: 256 jobs of 64
+    reads x 4 haps (65,536 pairs, 16,384 unique reads, 1,024 unique haps),
+    bytes from make_pairs -> the runner's _Unique rows."""
+    import numpy as np
+
+    from gatk_hc_tpu_torch.ops.runner import _Unique
+    from gatk_hc_tpu_torch.utils.quality import INITIAL_CONSTANT_F32
+
+    jobs, nr, nh = 256, 64, 4
+    n_reads, n_haps = jobs * nr, jobs * nh
+    read, qual, rlen, _h, _c = make_pairs(rng, n_reads, r_pad, c_pad)
+    _r, _q, _l, hap, clen = make_pairs(rng, n_haps, r_pad, c_pad)
+    spans = [(j, j * nr * nh, nr, nh) for j in range(jobs)]
+    bases = [(j * nr, j * nh) for j in range(jobs)]
+    init_y = (INITIAL_CONSTANT_F32 / clen.astype(np.float32)).astype(np.float32)
+    return _Unique((n_reads, n_haps, r_pad, c_pad), read.ravel(),
+                   qual.ravel(), hap.ravel(), rlen, clen, init_y, spans,
+                   bases, jobs * nr * nh)
+
+
+def prologue_bound(u, nbytes_in):
+    """The least time of one prologue launch in ms: each output written
+    once (rows 12 r_pad, hap 4 c_pad, rlen / clen / init_y 12 bytes a
+    pair) and each input byte read once, over HBM bandwidth; it computes
+    nothing."""
+    _nr, _nh, r_pad, c_pad = u.dims
+    out = u.total * (12 * r_pad + 4 * c_pad + 12)
+    return 1e3 * (out + nbytes_in) / PEAK_HBM_BYTES
+
+
+def phase_prologue():
+    """Both prologue entry points against their plain versions (all five
+    outputs bit for bit) at B = 65,536 and every (r_pad, c_pad) of the
+    default buckets, on a group packed by the runner's own host code."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.ops import pairhmm_packed as pk
+    from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
+
+    runner = TorchPairHMMRunner(DEFAULT_CONFIG, device="cuda")
+    rng = np.random.default_rng(20261017)
+    results = {}
+    for r_pad in DEFAULT_CONFIG.read_pad_buckets:
+        for c_pad in DEFAULT_CONFIG.hap_pad_buckets:
+            u = prologue_group(rng, r_pad, c_pad)
+            cases = {
+                "prologue_packed": runner._pack_bytes(u, time.perf_counter()),
+                "prologue_nib": runner._pack_nib(
+                    u, *runner._nib_encode(u.read_u8, u.qual_u8),
+                    time.perf_counter()),
+            }
+            for name, payload in cases.items():
+                views = payload.buf.ship(runner.device)
+                torch.cuda.synchronize()
+                tab = runner._ppe_tab
+                if name == "prologue_packed":
+                    pairs = views[2].view(2, u.total)
+                    args = (views[0], views[1], pairs[0], pairs[1], tab,
+                            *u.dims)
+                    kernel = lambda: pk.prologue_packed(*args)  # noqa: E731
+                    plain = lambda: pk.prologue_packed_plain(*args)  # noqa: E731
+                else:
+                    args = (views[0], views[1], views[2], tab,
+                            views[3].view(-1, 4), u.total, *u.dims)
+                    kernel = lambda: pk.prologue_nib(*args)  # noqa: E731
+                    plain = lambda: pk.prologue_nib_plain(*args)  # noqa: E731
+                got = kernel()
+                want, plain_ms = timed_once(plain)
+                torch.cuda.synchronize()
+                same = [torch.equal(g.view(torch.int32), w.view(torch.int32))
+                        for g, w in zip(got, want)]
+                nbytes_in = sum(v.numel() * v.element_size() for v in views)
+                row = {
+                    "phase": "kernel", "name": name, "B": u.total,
+                    "r_pad": r_pad, "c_pad": c_pad,
+                    "nr_pad": u.dims[0], "nh_pad": u.dims[1],
+                    "bit_equal_plain": all(same),
+                    "max_abs_err": 0.0 if all(same) else float("inf"),
+                    "plain_ms": round(plain_ms, 3),
+                    "bound_ms": round(prologue_bound(u, nbytes_in), 4),
+                    "bound_by": "bytes", "library_ms": None,
+                    "input_bytes": nbytes_in,
+                }
+                if not all(same):
+                    emit(row)
+                    raise AssertionError(
+                        f"{name} at r_pad={r_pad} c_pad={c_pad}: outputs "
+                        f"differ from the plain version: {same}")
+                row["ms"] = round(time_ms(kernel, 10), 4)
+                row["pct_of_bound"] = round(
+                    100 * row["bound_ms"] / row["ms"], 1)
+                emit(row)
+                results[(name, r_pad, c_pad)] = row
+    return results
+
+
 def run_cli(argv):
     """One in-process CLI run (the entry point a user calls) -> its
     --stats JSON, with the PairHMM kernels' launch counts of this run."""
@@ -436,10 +550,48 @@ def run_cli(argv):
     return stats
 
 
+# chrM and 2 Mb runs through each shipping path: name -> (flags, the
+# kernels it must launch and the only ones it may, the dispatch_profile
+# labels it may show).  adaptive calibrates only past 32 groups, so the
+# default run may add the nib path on the 2 Mb contig.
+PATH_RUNS = {
+    "planes": (["--dispatch-mode", "planes"], {"ppe4"}, {"ppe4"},
+               {"planes"}),
+    "nib": (["--dispatch-mode", "packed"], {"ppe4", "prologue_nib"},
+            {"ppe4", "prologue_nib", "prologue_packed"},
+            {"packednib", "packed"}),
+    "packed": (["--dispatch-mode", "packed", "--no-packed-nib"],
+               {"ppe4", "prologue_packed"}, {"ppe4", "prologue_packed"},
+               {"packed"}),
+    "fused": (["--dispatch-mode", "packed", "--no-fuse-auto"],
+              {"ppe4", "prologue_nib"},
+              {"ppe4", "prologue_nib", "prologue_packed"},
+              {"packednib", "packed", "packednibfused2", "packednibfused3",
+               "packednibfused4", "packedfused2", "packedfused3",
+               "packedfused4"}),
+}
+
+
+def check_run(name, stats, must, may, labels, fused=False):
+    """A run's launches and labels against its path: raises on a kernel
+    that was not launched or should not have been, on a label of another
+    path, and on a fused run without a fused label."""
+    launched = {k for k, n in stats["launches"].items() if n}
+    profile = set(stats.get("dispatch_profile") or {})
+    ok = (must <= launched <= may and profile <= labels
+          and (not fused or any("fused" in k for k in profile)))
+    if not ok:
+        raise AssertionError(
+            f"{name}: launches {stats['launches']}, dispatch_profile "
+            f"{stats.get('dispatch_profile')}")
+
+
 def phase_chrm(tmp):
     """chrM through the CLI on the card: byte-identical to the golden VCF,
     once per kernel instance (--ppe-rows, --pallas-algo striped
-    --stripe-height), each run launching that instance and no other."""
+    --stripe-height), each run launching that instance and no other, and
+    once per shipping path (PATH_RUNS, planes to fused) launching the
+    prologue entry point of its path."""
     fixtures = os.path.join(ROOT, "fixtures")
     with open(os.path.join(fixtures, "chrM.golden.vcf"), "rb") as handle:
         golden = handle.read()
@@ -448,7 +600,7 @@ def phase_chrm(tmp):
     ] + [
         (f"striped{h}", ["--pallas-algo", "striped", "--stripe-height", str(h)])
         for h in (32, 8, 16)  # 32 is the default height
-    ]
+    ] + [(name, flags) for name, (flags, *_rest) in PATH_RUNS.items()]
     launches = {}
     for name, flags in runs:
         out = os.path.join(tmp, f"chrM.{name}.vcf")
@@ -462,22 +614,37 @@ def phase_chrm(tmp):
               "regions": stats["regions"], "variants": stats["variants"],
               "launches": stats["launches"], "wall_s": stats["wall_s"],
               "dispatch_profile": stats.get("dispatch_profile"),
+              "init_profile": stats.get("init_profile"),
               "device_stages_ms": stats.get("device_stages_ms")})
-        if not identical or stats["launches"][name] == 0:
-            raise AssertionError(f"chrM with {name}: golden {identical}, "
-                                 f"launches {stats['launches']}")
-        if any(n for k, n in stats["launches"].items() if k != name):
-            raise AssertionError(
-                f"unexpected kernel launched: {stats['launches']}")
+        if not identical:
+            raise AssertionError(f"chrM with {name}: not the golden VCF")
+        if name in PATH_RUNS:
+            _f, must, may, labels = PATH_RUNS[name]
+            check_run(f"chrM {name}", stats, must, may, labels)
+            for k in must - {"ppe4"}:
+                launches[k] = stats["launches"][k]
+            continue
+        check_run(f"chrM {name}", stats, {name}, {name},
+                  {"planes", "striped"})
         launches[name] = stats["launches"][name]
     return launches
 
 
+CONTIG_RUNS = {
+    "ppe4": ([], {"ppe4"}, {"ppe4", "prologue_nib", "prologue_packed"},
+             {"planes", "packednib", "packed"}),
+    **PATH_RUNS,
+    "striped32": (["--pallas-algo", "striped"], {"striped32"}, {"striped32"},
+                  {"striped"}),
+}
+
+
 def phase_contig(tmp):
-    """2 Mb contig at 30x: the cuda engine through the ppe kernel (the
-    default) and the striped kernel (--pallas-algo striped), in turns ppe,
-    striped, striped, ppe so that their walls compare within one call,
-    each VCF byte-identical to the port's native engine's."""
+    """2 Mb contig at 30x: the cuda engine through the default (adaptive
+    shipping, ppe kernel), each shipping path of PATH_RUNS and the striped
+    kernel, in turns forward then backward so that their walls compare
+    within one call, each VCF byte-identical to the port's native
+    engine's."""
     import torch
 
     from gatk_hc_tpu_torch.tools import make_fixture
@@ -489,12 +656,12 @@ def phase_contig(tmp):
     gen_s = time.perf_counter() - t0
     base = ["-I", os.path.join(fix, "chr20sim.sam"),
             "-R", os.path.join(fix, "chr20sim.fa")]
-    flags = {"ppe4": [], "striped32": ["--pallas-algo", "striped"]}
-    runs = {name: [] for name in flags}
-    for k, name in enumerate(("ppe4", "striped32", "striped32", "ppe4")):
+    order = list(CONTIG_RUNS)
+    runs = {name: [] for name in order}
+    for k, name in enumerate(order + order[::-1]):
         vcf = os.path.join(tmp, f"chr20sim.{k}.{name}.vcf")
         torch.cuda.reset_peak_memory_stats()
-        stats = run_cli(base + ["-O", vcf] + flags[name])
+        stats = run_cli(base + ["-O", vcf] + CONTIG_RUNS[name][0])
         stats["cuda_max_memory_allocated_mb"] = round(
             torch.cuda.max_memory_allocated() / 2**20, 1)
         with open(vcf, "rb") as handle:
@@ -521,18 +688,26 @@ def phase_contig(tmp):
             "device_stages_ms": [s.get("device_stages_ms") for s in done],
             "launches": [s["launches"] for s in done],
             "dispatch_profile": [s.get("dispatch_profile") for s in done],
+            "init_profile": [s.get("init_profile") for s in done],
             "cuda_max_memory_allocated_mb": [
                 s["cuda_max_memory_allocated_mb"] for s in done],
         }
     emit(row)
     for name, done in runs.items():
+        _flags, must, may, labels = CONTIG_RUNS[name]
         for stats in done:
-            launched = {k: n for k, n in stats["launches"].items() if n}
-            if stats["vcf"] != want or set(launched) != {name}:
-                raise AssertionError(
-                    f"2 Mb contig with {name}: identical to native "
-                    f"{stats['vcf'] == want}, launches {stats['launches']}")
-    return {name: done[0]["launches"][name] for name, done in runs.items()}
+            if stats["vcf"] != want:
+                raise AssertionError(f"2 Mb contig with {name}: VCF differs "
+                                     "from native")
+            check_run(f"2 Mb {name}", stats, must, may, labels,
+                      fused=name == "fused")
+    # each kernel's launches in the first run of the path that drives it
+    return {
+        "ppe4": runs["ppe4"][0]["launches"]["ppe4"],
+        "striped32": runs["striped32"][0]["launches"]["striped32"],
+        "prologue_nib": runs["nib"][0]["launches"]["prologue_nib"],
+        "prologue_packed": runs["packed"][0]["launches"]["prologue_packed"],
+    }
 
 
 def main() -> int:
@@ -548,6 +723,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     smi = phase_card()
     kernels = phase_kernels()
+    kernels.update(phase_prologue())
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         chrm_launches = phase_chrm(tmp)
         contig_launches = phase_contig(tmp)
@@ -573,6 +749,20 @@ def main() -> int:
             "shape": {"B": rep["B"], "r_pad": rep["r_pad"],
                       "c_pad": rep["c_pad"]},
             **{k: rep[k] for k in LAUNCH_KEYS if k in rep},
+        })
+    for name in ("prologue_packed", "prologue_nib"):
+        rows = [v for (k, _r, _c), v in kernels.items() if k == name]
+        rep = kernels[(name,) + REPORT_SHAPE]
+        lines.append({
+            "name": name, "route": "cuda", "source": PROLOGUE_SOURCE,
+            "replaces": PROLOGUE_REPLACES[name],
+            "launches": contig_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": None,
+            "shape": {"B": rep["B"], "r_pad": rep["r_pad"],
+                      "c_pad": rep["c_pad"]},
         })
     print(smi, flush=True)
     emit({"kernels": lines})

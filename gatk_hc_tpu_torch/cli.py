@@ -8,7 +8,10 @@ downsampling, interval restriction (-L), verbosity, stage timing stats,
 checkpoint/resume manifests, and assembly-graph dumps.  The PairHMM runs on
 the CUDA card by default (--pairhmm cuda --device cuda) through the ppe
 kernel, or the striped kernel with --pallas-algo striped; --device cpu runs
-the same runner through the kernel's plain PyTorch version.
+the same runner through the kernel's plain PyTorch version.  The dispatch
+flags (--dispatch-mode, --no-packed-nib, --fuse-groups, --no-fuse-auto,
+--device-timeout) choose how groups are shipped and launched; every choice
+gives the same VCF.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import json
 import sys
 import time
 
-from .config import DEFAULT_CONFIG
+from .config import DEFAULT_CONFIG, FUSE_GROUPS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,6 +99,37 @@ def build_parser() -> argparse.ArgumentParser:
         choices=(1, 2, 4, 8), help="the fewest read rows one lane of the "
         "ppe kernel holds (every value gives the same result)",
     )
+    parser.add_argument(
+        "--dispatch-mode", default=DEFAULT_CONFIG.dispatch_mode,
+        choices=("adaptive", "planes", "packed"),
+        help="shipping encoding of the ppe kernel's groups: adaptive (the "
+        "default: the measured winner after 32 groups), or, for tests and "
+        "diagnostics, planes (i32 planes, lookups on the host) or packed "
+        "(bytes, lookups in the prologue kernel on the card); all give the "
+        "same result",
+    )
+    parser.add_argument(
+        "--no-packed-nib", action="store_true",
+        help="for tests and diagnostics: packed groups ship raw bytes (2 B "
+        "per read base) instead of the nibble-dictionary encoding (1 B per "
+        "read base + a span table)",
+    )
+    parser.add_argument(
+        "--fuse-groups", type=int, default=DEFAULT_CONFIG.fuse_groups,
+        choices=FUSE_GROUPS, help="fuse up to N same-path groups into one "
+        "copy and one kernel launch (1 = off)",
+    )
+    parser.add_argument(
+        "--no-fuse-auto", action="store_true",
+        help="for tests and diagnostics: fuse whenever --fuse-groups > 1, "
+        "not only in a measured deeply degraded phase",
+    )
+    parser.add_argument(
+        "--device-timeout", type=float, default=DEFAULT_CONFIG.device_timeout_s,
+        metavar="S", help="seconds a device batch or the kernel build may "
+        "take before a probe of the card decides between waiting longer and "
+        "stopping with an error (0 = wait forever)",
+    )
     parser.add_argument("--seed", type=int, default=DEFAULT_CONFIG.downsample_seed)
     parser.add_argument("--region-size", type=int, default=DEFAULT_CONFIG.region_size)
     parser.add_argument("--padding-size", type=int, default=DEFAULT_CONFIG.padding_size)
@@ -161,6 +195,11 @@ def main(argv=None) -> int:
         pallas_algo=args.pallas_algo,
         stripe_height=args.stripe_height,
         ppe_rows=args.ppe_rows,
+        dispatch_mode=args.dispatch_mode,
+        packed_nib=not args.no_packed_nib,
+        fuse_groups=args.fuse_groups,
+        fuse_auto=not args.no_fuse_auto,
+        device_timeout_s=args.device_timeout,
     )
     if args.dump_graph is not None:
         return _dump_graph(args, cfg)
@@ -205,16 +244,25 @@ def main(argv=None) -> int:
             # columnar data path); "python" stays on the simple per-region
             # oracle pipeline
             if cfg.pairhmm_engine == "cuda":
-                from .ops.runner import TorchPairHMMRunner
+                from .ops.runner import BackgroundRunner
 
-                runner = TorchPairHMMRunner(cfg, device=args.device)
-            with maybe_profile():
-                results = call_batched(
-                    args.input, args.reference, args.output, cfg,
-                    region_filter=region_filter, logger=logger,
-                    timers=timers, counters=counters, manifest=manifest,
-                    runner=runner,
-                )
+                # kernel build + load, CUDA context, device tables and the
+                # kernels' warm-up launches run on a background thread,
+                # overlapped with parse/assembly
+                runner = BackgroundRunner(cfg, device=args.device)
+            try:
+                with maybe_profile():
+                    results = call_batched(
+                        args.input, args.reference, args.output, cfg,
+                        region_filter=region_filter, logger=logger,
+                        timers=timers, counters=counters, manifest=manifest,
+                        runner=runner,
+                    )
+            finally:
+                # on ANY exit (errors included): no warm-up launch that has
+                # not started keeps the process alive
+                if runner is not None:
+                    runner.stop_prewarm()
         else:
             results = call(
                 args.input, args.reference, args.output, cfg,
@@ -253,23 +301,29 @@ def main(argv=None) -> int:
             stats["process_age_s"] = round(age, 3)
             stats["pre_main_s"] = round(age - elapsed, 3)
         if runner is not None:
-            # launches per shipping path: one runner holds every count, so
-            # nothing is merged (and no key can overwrite another's count)
-            if runner.dispatch_counts:
-                stats["dispatch_profile"] = dict(runner.dispatch_counts)
+            inner = runner.runner
+            # cold start: runner construction, kernel build + load, warm-up
+            # launches, first submit / drain
+            if inner.init_profile:
+                stats["init_profile"] = dict(inner.init_profile)
+            # launches per shipping path and fusion width: one runner holds
+            # every count, so nothing is merged
+            if inner.dispatch_counts:
+                stats["dispatch_profile"] = dict(inner.dispatch_counts)
             from .ops.pairhmm_torch import LAUNCHES
 
             stats["kernel_launches"] = {
                 name: n for name, n in LAUNCHES.items() if n
             }
-            # per-group device-stage medians (ms): host pack, H2D, pair
-            # gather, kernel, D2H (per submit) and host finalize
-            stats["device_stages_ms"] = runner.stage_medians()
-            if runner.device.type == "cuda":
+            # stage medians (ms): the caller's time in submit, host pack,
+            # H2D, gather / prologue, kernel, D2H (per submit) and host
+            # finalize, with their sums
+            stats["device_stages_ms"] = inner.stage_medians()
+            if inner.device.type == "cuda":
                 import torch
 
                 stats["cuda_max_memory_allocated_mb"] = round(
-                    torch.cuda.max_memory_allocated(runner.device) / 2**20, 1
+                    torch.cuda.max_memory_allocated(inner.device) / 2**20, 1
                 )
         try:
             from . import native

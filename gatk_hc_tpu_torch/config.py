@@ -14,6 +14,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+# fuse widths the reference package allows (gatk_hc_tpu/config.py)
+FUSE_GROUPS = (1, 2, 3, 4, 6, 8, 16)
+
 
 @dataclasses.dataclass(frozen=True)
 class SWParameters:
@@ -157,6 +160,37 @@ class HCConfig:
     # the strict bound.  No effect without stream_contigs.
     parse_ahead: bool = True
 
+    # --- PairHMM dispatch (ops/runner.py) ---
+    # The names, defaults and allowed values are the reference package's
+    # (gatk_hc_tpu/config.py), so a reference config carries them across.
+    # Shipping encoding of the ppe kernel's groups: "planes" ships
+    # host-prepared i32 element planes (12 B per read base, no lookups on
+    # the card); "packed" ships the raw bytes (2 B per read base) or, with
+    # packed_nib, nibble-dictionary bytes (1 B) and a span table, and the
+    # prologue kernel applies the lookups on the card; "adaptive" times one
+    # group on each after the first 32 groups and keeps choosing the
+    # measured winner (DispatchPathController).  Every encoding gives the
+    # same bits.  The forced modes, packed_nib=False and fuse_auto=False
+    # are for tests and diagnostics: no measured workload favours one yet.
+    dispatch_mode: str = "adaptive"
+    # The nib encoding on single-chunk packed groups whose alphabets fit
+    # (<= 8 read bytes, <= 32 quality bytes); others ship raw packed.
+    packed_nib: bool = True
+    # Fuse up to N same-path single-chunk groups of one (r_pad, c_pad)
+    # into ONE copy and ONE kernel launch (bit-identical per group); 1 =
+    # off.
+    fuse_groups: int = 4
+    # True: fuse only while the dispatch controller measures a deeply
+    # degraded phase (per-pair cost > 6x its best); False: always fuse
+    # when fuse_groups > 1.
+    fuse_auto: bool = True
+    # Device-wedge check: when resolving a submitted batch, waiting for its
+    # results or waiting for the kernel build passes this many seconds AND
+    # a fresh probe of the card cannot finish, the runner raises
+    # DeviceWedgedError (the reference fails over to its C++ engine; the
+    # port never moves the card's work to the CPU).  0 waits forever.
+    device_timeout_s: float = 1200.0
+
     def __post_init__(self) -> None:
         if self.pallas_algo not in ("ppe", "striped"):
             raise ValueError(
@@ -166,6 +200,22 @@ class HCConfig:
         if self.stripe_height not in (8, 16, 32):
             raise ValueError(
                 f"stripe_height must be 8, 16 or 32, got {self.stripe_height}"
+            )
+        if self.dispatch_mode not in ("adaptive", "planes", "packed"):
+            raise ValueError(
+                "dispatch_mode must be 'adaptive', 'planes' or 'packed', "
+                f"got {self.dispatch_mode!r}"
+            )
+        if self.fuse_groups not in FUSE_GROUPS:
+            raise ValueError(
+                f"fuse_groups must be one of {FUSE_GROUPS}, got {self.fuse_groups}"
+            )
+        for name in ("packed_nib", "fuse_auto"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"{name} must be a bool")
+        if not self.device_timeout_s >= 0:
+            raise ValueError(
+                f"device_timeout_s must be >= 0, got {self.device_timeout_s}"
             )
 
 

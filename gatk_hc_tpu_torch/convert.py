@@ -19,17 +19,11 @@ import torch
 from .config import HCConfig, SWParameters
 from .ops.pairhmm_torch import TABLE_KEYS, plane_tables
 
-# Reference HCConfig keys that only steer the TPU build (kernel tiling,
-# relay-era dispatch encodings and fusion, the device-wedge failover).  The
-# port has no counterpart, so they are dropped by name.
-TPU_ONLY_KEYS = (
-    "pair_batch",
-    "fuse_groups",
-    "fuse_auto",
-    "dispatch_mode",
-    "packed_nib",
-    "device_timeout_s",
-)
+# Reference HCConfig keys that only steer the TPU build: pair_batch is the
+# lane width of a TPU tile, which the CUDA kernels do not have.  It is
+# dropped by name; the dispatch keys (dispatch_mode, packed_nib,
+# fuse_groups, fuse_auto, device_timeout_s) are carried across.
+TPU_ONLY_KEYS = ("pair_batch",)
 
 # Reference PairHMM engine names -> the port's.  "pallas" is the device
 # kernel engine on either side; the others are not ported yet.

@@ -662,6 +662,8 @@ def call_batched(
             write_vcf(
                 out_path, [(c.name, len(c.seq)) for c in contigs], results, cfg
             )
+    if hasattr(runner, "stop_prewarm"):
+        runner.stop_prewarm()
     logger.done()
     return results
 

@@ -139,8 +139,30 @@ def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
     shape.argtypes = [i, i, i, i, vp]  # r_pad, c_pad, stripe, k, int[3] out
 
 
+def _bind_pairhmm_prologue(lib: ctypes.CDLL) -> None:
+    """The packed and nib prologues: a group's unique rows -> the ppe
+    kernel's pair-minor inputs, at pair offset ``off`` of ``stride``."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    outs = [vp, vp, vp, vp, vp, i, i]  # rows, hap, rlen, clen, init_y, stride, off
+    fn = lib.pairhmm_prologue_packed
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        vp, vp, vp, vp, vp,  # u8, i32, pair reads, pair haps, 768 table
+        i, i, i, i, i,  # n, nr_pad, nh_pad, r_pad, c_pad
+        *outs, vp,  # cudaStream_t
+    ]
+    fn = lib.pairhmm_prologue_nib
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        vp, vp, vp, vp, vp,  # u8, i32, mini-table, 768 table, spans
+        i, i, i, i, i, i,  # n_spans, n, nr_pad, nh_pad, r_pad, c_pad
+        *outs, vp,  # cudaStream_t
+    ]
+
+
 _BINDERS = {
     "pairhmm_ppe": _bind_pairhmm_ppe,
     "pairhmm_striped": _bind_pairhmm_striped,
+    "pairhmm_prologue": _bind_pairhmm_prologue,
 }
 KERNELS = tuple(_BINDERS)

@@ -41,6 +41,9 @@ MIN_NORMAL = float(np.ldexp(1.0, -126))
 LAUNCHES: Dict[str, int] = {
     **{f"ppe{nr}": 0 for nr in (1, 2, 4, 8)},
     **{f"striped{h}": 0 for h in (8, 16, 32)},
+    # csrc/pairhmm_prologue.cu (ops/pairhmm_packed.py)
+    "prologue_packed": 0,
+    "prologue_nib": 0,
 }
 
 
@@ -302,6 +305,15 @@ def ppe_forward(rows, hap, rlen, clen, init_y, trans, ppe_rows: int = 4):
         return ppe_forward_plain(rows, hap, rlen, clen, init_y, trans)
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
+    out = launch_ppe(rows, hap, rlen, clen, init_y, trans, ppe_rows)
+    LAUNCHES[f"ppe{select_rows(ppe_rows, rows.shape[0])}"] += 1
+    return out
+
+
+def launch_ppe(rows, hap, rlen, clen, init_y, trans, ppe_rows: int):
+    """The ppe kernel's launch on checked CUDA tensors, uncounted: what
+    ``ppe_forward`` counts, and the runner's warm-up launches (which load
+    an instance before its first group) do not."""
     from . import _kernels
 
     lib = _kernels.load("pairhmm_ppe")
@@ -318,7 +330,6 @@ def ppe_forward(rows, hap, rlen, clen, init_y, trans, ppe_rows: int = 4):
     )
     if err != 0:
         raise RuntimeError(f"pairhmm_ppe_forward launch failed: CUDA error {err}")
-    LAUNCHES[f"ppe{nr}"] += 1
     return out
 
 
@@ -363,11 +374,17 @@ def gather_pairs(buf, pairs, nr_pad, nh_pad, r_pad, c_pad):
     """Per-pair expansion into the kernel's pair-minor layout: exact
     integer index ops on the buffer's device.  -> (rows, hap, rlen, clen,
     init_y)."""
-    ru, hu, read_lens, hap_lens, init_y = unpack_planes(
-        buf, nr_pad, nh_pad, r_pad, c_pad
+    return gather_unique(
+        *unpack_planes(buf, nr_pad, nh_pad, r_pad, c_pad), pairs[0], pairs[1]
     )
-    pr = pairs[0].to(torch.int64)
-    ph = pairs[1].to(torch.int64)
+
+
+def gather_unique(ru, hu, read_lens, hap_lens, init_y, pair_read, pair_hap):
+    """The gathers of dispatch_pairs_ppe: unique tables (ru (3, NR, R),
+    hu (NH, C), lengths, init_y) and (B,) pair indices -> the kernel's
+    pair-minor (rows, hap, rlen, clen, init_y)."""
+    pr = pair_read.to(torch.int64)
+    ph = pair_hap.to(torch.int64)
     rows = ru.permute(2, 0, 1).index_select(2, pr)  # (r_pad, 3, B)
     hap = hu.t().index_select(1, ph)  # (c_pad, B)
     return (

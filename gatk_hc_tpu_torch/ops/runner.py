@@ -3,31 +3,48 @@
 The region pipeline produces many small (reads × haps) jobs; launching each
 separately would drown in per-launch overhead.  ``TorchPairHMMRunner``:
 
-1. groups jobs greedily until a launch fills up (pair budget / unique-read
+1. ``submit`` returns a handle at once; everything below runs on one FIFO
+   daemon worker thread (``_DaemonWorker``) under the runner's CUDA
+   stream, so the caller's thread keeps feeding the host pipeline;
+2. groups jobs greedily until a launch fills up (pair budget / unique-read
    budget / unique-hap budget);
-2. packs each group's UNIQUE reads and haplotypes once on the host into one
-   pinned buffer: for the ppe kernel (cfg.pallas_algo "ppe") i32 planes
-   with the table lookups applied there; for the striped kernel
-   ("striped") the raw bytes, 2 B per base, whose lookups run on the card
-   once per group (ops/pairhmm_striped.py::prepare_tables_striped);
-   divisions stay on the host either way;
-3. on one CUDA stream: copies the buffer to the card, expands (read, hap)
-   pairs with device index ops and launches the kernel per chunk,
-   concatenates a submit's outputs and copies them back in one transfer;
-4. at drain, scatters raw f32 probabilities back to per-job read-major
-   matrices and finalizes log10 likelihoods (sentinel or exact host float64
-   rescue for underflowed pairs, cfg.f64_rescue).
+3. packs each group's UNIQUE reads and haplotypes once on the host into one
+   pinned buffer, in the shipping encoding ``DispatchPathController``
+   picks (cfg.dispatch_mode): "planes", i32 planes with the table lookups
+   applied on the host (12 B per read base), or "packed", the raw bytes
+   (2 B per read base) or, with cfg.packed_nib, nibble-dictionary bytes
+   (1 B per read base) and a span table instead of the pair indices, whose
+   lookups and pair expansion the prologue kernel does on the card
+   (ops/pairhmm_packed.py, csrc/pairhmm_prologue.cu); the striped kernel
+   (cfg.pallas_algo "striped") ships raw bytes;
+4. on the stream: one H2D copy, the gather or prologue, one ppe launch per
+   chunk — or, with fusion (cfg.fuse_groups, cfg.fuse_auto), one copy and
+   one launch for k same-path groups — then one D2H copy of the submit's
+   outputs;
+5. ``drain`` resolves the handle (re-raising any error of the worker),
+   waits for the D2H copy and finalizes log10 likelihoods per job
+   (sentinel or exact host float64 rescue for underflowed pairs,
+   cfg.f64_rescue).  A resolve or wait that passes cfg.device_timeout_s
+   while a fresh probe of the card cannot finish either raises
+   ``DeviceWedgedError``: the card's work is never handed to the CPU.
+
+``BackgroundRunner`` builds the kernels, the CUDA context and the runner on
+a thread that overlaps the host's parse and assembly, then launches each
+kernel instance once on a tiny input.
 
 This is the GPU counterpart of gatk_hc_tpu/ops/runner.py::
-PallasPairHMMRunner on its planes and striped paths, and of the
-reference's flat testcase batch + OpenMP loop (intel_pairhmm.hpp:115-203).
+PallasPairHMMRunner and BackgroundRunner, and of the reference's flat
+testcase batch + OpenMP loop (intel_pairhmm.hpp:115-203).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import queue
 import statistics
+import sys
+import threading
 import time
 from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -36,11 +53,15 @@ import numpy as np
 import torch
 
 from ..config import HCConfig
+from ..utils.logging import process_age_s as _process_age_s
 from ..utils.quality import INITIAL_CONSTANT_F32
 
 ReadArray = Tuple[np.ndarray, np.ndarray]  # (bases u8, quals u8)
 
-STAGES = ("pack", "h2d", "gather", "kernel", "d2h", "finalize")
+# "submit" is the caller's time inside submit(), per submit; "d2h" is per
+# submit; the others are per launch unit (a group, or k fused groups),
+# "pack" per group
+STAGES = ("submit", "pack", "h2d", "gather", "kernel", "d2h", "finalize")
 
 
 @dataclasses.dataclass
@@ -87,6 +108,190 @@ def _bucket(value: int, buckets: Sequence[int]) -> int:
     raise ValueError(f"value {value} exceeds largest bucket {buckets[-1]}")
 
 
+class DispatchPathController:
+    """Measured planes-vs-packed selection of the shipping encoding.
+
+    Which encoding is cheaper depends on the host, the link and the card:
+    planes ship 12 B per read base and need no lookups on the card; packed
+    ships 2 B (1 B with the nib encoding) and runs the prologue kernel.
+    Instead of a cost model, the runner times one END-TO-END group per path
+    (pack + H2D + prologue + kernel, synchronised on its stream) and keeps
+    choosing the measured winner, re-timing the staler path every
+    ``recal_every`` groups so that a change of phase flips the choice
+    within one calibration cycle.
+
+    Short runs never pay for this: calibration starts only after
+    ``min_groups`` groups (a chrM-sized run has ~5), so the planes default
+    serves small inputs untouched."""
+
+    PATHS = ("planes", "packed")
+
+    def __init__(self, forced: Optional[str] = None, min_groups: int = 32,
+                 recal_every: int = 32):
+        self.forced = forced
+        self.min_groups = min_groups
+        self.recal_every = recal_every
+        self.groups = 0
+        # path -> (seconds per pair, group index of the measurement)
+        self.measured: Dict[str, Tuple[float, int]] = {}
+
+    def choose(self) -> Tuple[str, bool]:
+        """-> (path, calibrate): when calibrate is True the caller times
+        the group synchronously and reports via record()."""
+        if self.forced is not None:
+            return self.forced, False
+        self.groups += 1
+        if self.groups < self.min_groups:
+            return "planes", False
+        for path in self.PATHS:
+            if path not in self.measured:
+                return path, True
+        stale = min(self.PATHS, key=lambda p: self.measured[p][1])
+        if self.groups - self.measured[stale][1] >= self.recal_every:
+            return stale, True
+        return min(self.PATHS, key=lambda p: self.measured[p][0]), False
+
+    def record(self, path: str, sec_per_pair: float) -> None:
+        self.measured[path] = (sec_per_pair, self.groups)
+
+    def degraded(self, factor: float = 2.0) -> bool:
+        """True once measurements show a slow phase (the winner's per-pair
+        cost more than ``factor``x its best historical).  The reference
+        also coarsens its padded tail chunk on this; the port launches
+        exact sizes and has no such chunk, so here it only gates fusion
+        (through ``deeply_degraded``)."""
+        if not self.measured:
+            return False
+        best_now = min(v[0] for v in self.measured.values())
+        floor = getattr(self, "_best_ever", None)
+        if floor is None or best_now < floor:
+            self._best_ever = floor = best_now
+        return best_now > factor * floor
+
+    # Fusion gate: the calibration measurement is synchronous, so it
+    # includes latency, and fusion pays only when launch THROUGHPUT
+    # collapses, which shows as a much larger multiple of the best-ever
+    # per-pair cost; the fuse_auto gate therefore requires a DEEP
+    # degradation (the reference's threshold).
+    DEEP_DEGRADATION_FACTOR = 6.0
+
+    def deeply_degraded(self) -> bool:
+        return self.degraded(self.DEEP_DEGRADATION_FACTOR)
+
+
+class DeviceWedgedError(RuntimeError):
+    """The card stopped answering: a batch, its copy back or the kernel
+    build ran past cfg.device_timeout_s and a fresh probe of the card could
+    not finish either.  The run stops here; its work is not recomputed on
+    the CPU (the reference fails over to its C++ engine instead)."""
+
+
+class _StillRunning(TimeoutError):
+    """A wait on a worker task ran out of time (distinct from a
+    TimeoutError the task itself raised, which drain re-raises)."""
+
+
+class _WorkerFuture:
+    """Minimal future for _DaemonWorker tasks; submit() returns one as the
+    handle that drain() resolves."""
+
+    __slots__ = ("_done", "_result", "_exc")
+
+    def __init__(self):
+        self._done = threading.Event()
+        self._result = None
+        self._exc = None
+
+    def _set(self, result=None, exc=None):
+        self._result, self._exc = result, exc
+        self._done.set()
+
+    def result(self, timeout=None):
+        if not self._done.wait(timeout):
+            raise _StillRunning("worker task still running")
+        if self._exc is not None:
+            raise self._exc
+        return self._result
+
+
+# Bounded exit policy for every device-touching helper thread: all are
+# DAEMON (a call wedged inside one must not block process exit, so that
+# a DeviceWedgedError ends the process), but an atexit hook waits up to
+# _EXIT_JOIN_S for them to go idle, so that in the healthy case interpreter
+# teardown never runs while a CUDA call is in flight; a wedged thread is
+# abandoned after the bound instead of hanging exit forever.
+_EXIT_JOIN_S = 120.0
+_EXIT_WAITERS: List = []  # callables: (timeout) -> None
+_EXIT_LOCK = threading.Lock()
+
+
+def _join_device_threads() -> None:
+    deadline = time.monotonic() + _EXIT_JOIN_S
+    for wait in list(_EXIT_WAITERS):
+        try:
+            wait(max(0.0, deadline - time.monotonic()))
+        except Exception:  # noqa: BLE001 - exit must go on
+            pass
+
+
+def _register_exit_wait(wait_fn) -> None:
+    with _EXIT_LOCK:
+        if not _EXIT_WAITERS:
+            import atexit
+
+            atexit.register(_join_device_threads)
+        _EXIT_WAITERS.append(wait_fn)
+
+
+class _DaemonWorker:
+    """Single FIFO DAEMON worker thread.  Unlike ThreadPoolExecutor, whose
+    workers are joined at interpreter exit, a task wedged inside a blocked
+    device call cannot keep the process from exiting after a
+    DeviceWedgedError.  The module atexit hook still waits, bounded, for
+    the worker to go idle."""
+
+    def __init__(self, name: str):
+        self._q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._lock = threading.Lock()
+        self._pending = 0
+        self._idle = threading.Event()
+        self._idle.set()
+        self.abandoned = False  # set on a declared wedge: exit must
+        # not wait for a worker known to be blocked in a dead device call
+        self._t = threading.Thread(target=self._loop, name=name, daemon=True)
+        self._t.start()
+        _register_exit_wait(self.wait_idle)
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, args, fut = item
+            try:
+                fut._set(result=fn(*args))
+            except BaseException as exc:  # delivered at fut.result()
+                fut._set(exc=exc)
+            finally:
+                with self._lock:
+                    self._pending -= 1
+                    if self._pending == 0:
+                        self._idle.set()
+
+    def submit(self, fn, *args) -> _WorkerFuture:
+        fut = _WorkerFuture()
+        with self._lock:
+            self._pending += 1
+            self._idle.clear()
+        self._q.put((fn, args, fut))
+        return fut
+
+    def wait_idle(self, timeout: Optional[float] = None) -> bool:
+        if self.abandoned:
+            return True
+        return self._idle.wait(timeout)
+
+
 class _Stamp:
     """A point in a stage timeline: a CUDA event on the runner's stream, or
     a host clock reading on the CPU path (where every step is synchronous)."""
@@ -106,46 +311,143 @@ class _Stamp:
         return self.event.elapsed_time(other.event)
 
 
+_ALIGN = 16  # bytes: every array of a host buffer starts on this boundary
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int32): torch.int32}
+
+
+class _HostBuffer:
+    """Arrays laid out in one uint8 host buffer at 16-byte offsets, pinned
+    on the CUDA path, so that one non-blocking copy ships them all.  The
+    buffer must outlive that copy: the batch keeps it until drain."""
+
+    def __init__(self, specs, pinned: bool):
+        self.specs = [(np.dtype(d), int(n)) for d, n in specs]
+        self.offsets = []
+        at = 0
+        for dtype, count in self.specs:
+            self.offsets.append(at)
+            at += -(-dtype.itemsize * count // _ALIGN) * _ALIGN
+        self.host = torch.empty(max(at, _ALIGN), dtype=torch.uint8,
+                                pin_memory=pinned)
+        self._np = self.host.numpy()
+
+    def array(self, k: int) -> np.ndarray:
+        """Writable numpy view of array k."""
+        dtype, count = self.specs[k]
+        at = self.offsets[k]
+        return self._np[at : at + dtype.itemsize * count].view(dtype)
+
+    def ship(self, device: torch.device) -> List[torch.Tensor]:
+        """One copy to ``device`` (none on the CPU) -> a view per array."""
+        dev = (self.host if device.type == "cpu"
+               else self.host.to(device, non_blocking=True))
+        return [
+            dev[at : at + dtype.itemsize * count].view(_TORCH_DTYPES[dtype])
+            for (dtype, count), at in zip(self.specs, self.offsets)
+        ]
+
+
 @dataclasses.dataclass
-class _Group:
+class _Unique:
+    """A group's unique rows as bytes (the host side of every encoding)."""
+
+    dims: Tuple[int, int, int, int]  # nr_pad, nh_pad, r_pad, c_pad
+    read_u8: np.ndarray  # (nr_pad * r_pad,) u8
+    qual_u8: np.ndarray
+    hap_u8: np.ndarray  # (nh_pad * c_pad,) u8
+    read_lens: np.ndarray  # (nr_pad,) i32, padding rows 1
+    hap_lens: np.ndarray  # (nh_pad,) i32
+    hap_init_y: np.ndarray  # (nh_pad,) f32
     spans: List[Tuple[int, int, int, int]]  # (job, start, nr, nh)
-    start: int  # offset of the group's pairs in the submit's output
+    bases: List[Tuple[int, int]]  # (first unique read, first unique hap)
+    total: int
+
+    def lens_into(self, out: np.ndarray) -> None:
+        """[read lens | hap lens | init_y bits] into an i32 array."""
+        nr_pad, nh_pad = self.dims[:2]
+        out[:nr_pad] = self.read_lens
+        out[nr_pad : nr_pad + nh_pad] = self.hap_lens
+        out[nr_pad + nh_pad :] = self.hap_init_y.view(np.int32)
+
+    def pairs_into(self, out: np.ndarray) -> None:
+        """(2, total) pair indices (read-major per job, jobs in group
+        order) into a flat i32 array."""
+        total = self.total
+        for (_g, start, nr, nh), (rb, hb) in zip(self.spans, self.bases):
+            n = nr * nh
+            out[start : start + n] = np.repeat(
+                np.arange(rb, rb + nr, dtype=np.int32), nh)
+            out[total + start : total + start + n] = np.tile(
+                np.arange(hb, hb + nh, dtype=np.int32), nr)
+
+
+@dataclasses.dataclass
+class _Payload:
+    """One group packed for shipping: its arrays in one host buffer."""
+
+    path: str  # "planes" | "packed" | "packednib"
+    dims: Tuple[int, int, int, int]
+    buf: _HostBuffer
+    spans: List[Tuple[int, int, int, int]]
     total: int
     pack_ms: float
+
+
+@dataclasses.dataclass
+class _Entry:
+    """One launch unit of a submit (a group, or k fused groups) with its
+    stage timeline."""
+
+    spans: List[Tuple[int, int, int, int]]  # (job, start in entry, nr, nh)
+    total: int
+    pack_ms: List[float]  # per group
     h2d: Tuple[_Stamp, _Stamp]
     chunks: List[Tuple[_Stamp, _Stamp, _Stamp]]  # gather start, launch, end
+    outs: Optional[List[torch.Tensor]]  # the launches' results (until D2H)
+    keep: object  # the host buffer, alive until the batch is drained
+    start: int = 0  # offset in the submit's output
 
 
 @dataclasses.dataclass
 class _Batch:
     jobs: Sequence[PairHMMJob]
-    groups: List[_Group]
+    entries: List[_Entry]
     host_out: torch.Tensor  # (n_pairs,) f32, pinned on the CUDA path
     d2h: Optional[Tuple[_Stamp, _Stamp]]
+
+
+# fused-launch labels per path, as the reference's dispatch_profile
+_FUSE_LABEL = {"planes": "fused", "packed": "packedfused",
+               "packednib": "packednibfused"}
 
 
 class TorchPairHMMRunner:
     """Batches PairHMMJobs into PairHMM kernel launches on one device: the
     ppe kernel, or the striped one when cfg.pallas_algo is "striped".
 
-    ``device`` is "cuda" (the default: the CUDA kernel; raises when no card
-    is visible) or "cpu" (the same packing, gather and finalize around the
-    kernel's plain PyTorch version — what the tests run).  ``tables``
-    replaces the numeric tables (ops/pairhmm_torch.py::make_tables layout,
-    e.g. from convert.tables_from_reference)."""
+    ``device`` is "cuda" (the default: the CUDA kernels; raises when no card
+    is visible) or "cpu" (the same worker, packing, prologue and finalize
+    around the kernels' plain PyTorch versions — what the tests run).
+    ``tables`` replaces the numeric tables (ops/pairhmm_torch.py::
+    make_tables layout, e.g. from convert.tables_from_reference)."""
 
     # Grouping limits.  One group is one launch unless a single job
     # overflows the pair budget, which is then also the most pairs of one
-    # launch (a chunk).  A group of 65,536 pairs runs 65,536
-    # threads (512 blocks of 128, ~3.9 per SM on an H100's 132 SMs), all
-    # resident at once at every NR: the kernel uses 48-96 registers a
-    # thread, and even at 96 an SM holds 5 such blocks.  At 30x coverage a
-    # region contributes ~300 pairs from ~80 reads, so the read and hap
-    # budgets below do not cut groups short first.
+    # launch (a chunk).  The ppe kernel runs one warp per pair in blocks of
+    # 4 warps: a group of 65,536 pairs is 16,384 blocks, and at K 5 (r_pad
+    # 160) an SM holds 8 of them (32 pairs) at once, so one launch is ~15.5
+    # waves over an H100's 132 SMs.  At 30x coverage a region contributes
+    # ~300 pairs from ~80 reads, so the read and hap budgets below do not
+    # cut groups short first.
     READ_BUCKETS = (4096, 16384)
     HAP_BUCKETS = (1024, 4096)
     GROUP_PAIRS = 65536
     ROW_ALIGN = 8  # ppe: r_pad past the buckets rounds to the largest NR
+    # How many extra full budgets drain grants when a batch timed out but
+    # a probe shows the card alive (throttled, not wedged).  Bounds the
+    # wait so that a deadlock still raises DeviceWedgedError eventually.
+    MAX_SLOW_EXTENSIONS = 3
 
     def __init__(self, cfg: HCConfig, device="cuda",
                  pair_budget: Optional[int] = None, tables=None):
@@ -163,6 +465,7 @@ class TorchPairHMMRunner:
             self._stream = None
         else:
             raise ValueError(f"unsupported device {self.device}")
+        self._pinned = self._stream is not None
         self.cfg = cfg
         if tables is None:
             tables = make_tables(cfg, "cpu")
@@ -171,6 +474,11 @@ class TorchPairHMMRunner:
         self._omq_bits_tab = host["omq_bits"]
         self._q3_bits_tab = host["q3_bits"]
         self.trans = tuple(np.float32(t) for t in host["trans"])
+        # the 768-entry combined table of the prologue (ppe_element_table
+        # layout: the three plane tables end to end)
+        self._ppe_tab = torch.from_numpy(np.concatenate(
+            [self._mask_tab, self._omq_bits_tab, self._q3_bits_tab]
+        ).astype(np.int32)).to(self.device)
         self.striped = cfg.pallas_algo == "striped"
         if self.striped:
             from .pairhmm_striped import striped_tables
@@ -181,9 +489,24 @@ class TorchPairHMMRunner:
                 for t in striped_tables(host["base_table"], host["ph2pr"])
             )
         self.pair_budget = pair_budget or self.GROUP_PAIRS
+        self._path_ctl = DispatchPathController(
+            forced=None if cfg.dispatch_mode == "adaptive" else cfg.dispatch_mode
+        )
+        # ONE dispatch worker (started at the first submit): packing, H2D,
+        # prologue, launches and the D2H copy of a submit run there, FIFO,
+        # so they overlap the caller's host work and the card's compute
+        self._submit_pool: Optional[_DaemonWorker] = None
+        self._fetch_pool: Optional[_DaemonWorker] = None
+        # "dispatch" or "fetch" once a wait of that stage passed
+        # cfg.device_timeout_s with a failed probe
+        self._wedged: Optional[str] = None
+        self._prewarm_stop = threading.Event()
+        self._prewarm_exc: Optional[BaseException] = None
+        # cold-start attribution, surfaced as init_profile in --stats
+        self.init_profile: Dict[str, float] = {}
         # launches by path, surfaced as dispatch_profile in --stats
         self.dispatch_counts: Dict[str, int] = {}
-        # per-group (per-submit for d2h) stage times in ms
+        # stage times in ms (STAGES)
         self.stage_ms: Dict[str, List[float]] = {s: [] for s in STAGES}
 
     # ------------------------------------------------------------------
@@ -191,60 +514,193 @@ class TorchPairHMMRunner:
         """Compute results for all jobs in-place (submit + drain)."""
         self.drain([self.submit(jobs)])
 
-    def submit(self, jobs: Sequence[PairHMMJob]) -> _Batch:
-        """Pack every group on the host and enqueue its device work without
-        waiting: one H2D copy and one launch per chunk per group, then one
-        concatenated D2H copy for the whole submit.  Pass the token to
-        drain() to collect."""
-        groups: List[_Group] = []
-        outs: List[torch.Tensor] = []
-        start = 0
-        stream = self._stream
-        ctx = torch.cuda.stream(stream) if stream is not None else nullcontext()
-        with ctx:
-            for group in self._plan_groups(jobs):
-                g, g_outs = self._submit_group(jobs, group, start)
-                groups.append(g)
-                outs.extend(g_outs)
-                start += g.total
-            if not outs:
-                return _Batch(jobs, groups, torch.zeros(0), None)
-            dev_out = outs[0] if len(outs) == 1 else torch.cat(outs)
-            if stream is None:
-                return _Batch(jobs, groups, dev_out, None)
-            host_out = torch.empty(
-                dev_out.shape, dtype=torch.float32, pin_memory=True
-            )
-            d0 = _Stamp(stream)
-            host_out.copy_(dev_out, non_blocking=True)
-            d1 = _Stamp(stream)
-        return _Batch(jobs, groups, host_out, (d0, d1))
+    def submit(self, jobs: Sequence[PairHMMJob]) -> _WorkerFuture:
+        """Enqueue all device work for ``jobs`` WITHOUT waiting: the whole
+        body (group planning, packing, H2D, prologue, launches, D2H) runs
+        on the dispatch worker, so this returns at once.  Errors surface
+        at drain().  Pass the handle(s) to drain() to collect."""
+        t0 = time.perf_counter()
+        self._raise_if_wedged()
+        if self._submit_pool is None:
+            self._submit_pool = _DaemonWorker("hc-dispatch")
+        handle = self._submit_pool.submit(self._submit_batch, jobs)
+        self.stage_ms["submit"].append((time.perf_counter() - t0) * 1e3)
+        return handle
 
-    def drain(self, batches: Sequence[_Batch]) -> None:
-        """Wait for each batch's transfer back, then finalize its groups."""
-        for batch in batches:
+    def _submit_batch(self, jobs: Sequence[PairHMMJob]) -> _Batch:
+        """The worker's body of one submit."""
+        if self._prewarm_exc is not None:
+            raise self._prewarm_exc
+        first = "first_submit_batch_s" not in self.init_profile
+        if first:
+            self.init_profile["first_submit_at_age_s"] = round(
+                _process_age_s(), 3)
+            t_first = time.perf_counter()
+        stream = self._stream
+        # the current stream is per thread: the worker enters it itself
+        with torch.cuda.stream(stream) if stream is not None else nullcontext():
+            groups = self._plan_groups(jobs)
+            # fuse_auto: fusion engages on the controller's measured DEEP
+            # degradation (DispatchPathController.deeply_degraded), not
+            # statically (HCConfig.fuse_auto)
+            fuse_on = self.cfg.fuse_groups > 1 and (
+                not self.cfg.fuse_auto or self._path_ctl.deeply_degraded()
+            )
+            sink: Optional[List[_Payload]] = [] if fuse_on else None
+            entries: List[_Entry] = []
+            for group in groups:
+                entry = self._submit_group(jobs, group, sink)
+                if entry is not None:
+                    entries.append(entry)
+            if sink:
+                entries.extend(self._dispatch_fused(sink))
+            outs: List[torch.Tensor] = []
+            start = 0
+            for entry in entries:
+                entry.start = start
+                start += entry.total
+                outs.extend(entry.outs)
+                entry.outs = None
+            if not outs:
+                batch = _Batch(jobs, entries, torch.zeros(0), None)
+            else:
+                dev_out = outs[0] if len(outs) == 1 else torch.cat(outs)
+                if stream is None:
+                    batch = _Batch(jobs, entries, dev_out, None)
+                else:
+                    host_out = torch.empty(dev_out.shape, dtype=torch.float32,
+                                           pin_memory=True)
+                    d0 = _Stamp(stream)
+                    host_out.copy_(dev_out, non_blocking=True)
+                    batch = _Batch(jobs, entries, host_out, (d0, _Stamp(stream)))
+        if first:
+            self.init_profile["first_submit_batch_s"] = round(
+                time.perf_counter() - t_first, 3)
+        return batch
+
+    def drain(self, batches) -> None:
+        """Wait for each submitted batch's transfer back, then finalize its
+        jobs.  Accepts submit() handles (resolved here — this is where an
+        error of the worker raises) or resolved batches.
+
+        Wedge check: if resolving a handle or waiting for its D2H copy
+        passes cfg.device_timeout_s and a fresh probe of the card cannot
+        finish either, DeviceWedgedError raises (and so does every later
+        submit and drain).  An error of the worker raises as itself."""
+        self._raise_if_wedged()
+        timeout = self.cfg.device_timeout_s or None
+        resolved = [
+            self._wait(b, "dispatch", timeout)
+            if isinstance(b, _WorkerFuture) else b
+            for b in batches
+        ]
+        if not resolved:
+            return
+        first_fetch = "first_drain_fetch_s" not in self.init_profile
+        t_fetch = time.perf_counter()
+        self._fetch(resolved, timeout)
+        if first_fetch:
+            self.init_profile["first_drain_fetch_s"] = round(
+                time.perf_counter() - t_fetch, 3)
+        for batch in resolved:
             if batch.d2h is not None:
-                batch.d2h[1].event.synchronize()
                 self.stage_ms["d2h"].append(batch.d2h[0].ms_until(batch.d2h[1]))
             probs = batch.host_out.numpy()
-            for g in batch.groups:
+            for e in batch.entries:
                 t0 = time.perf_counter()
                 self._finalize_group(
-                    batch.jobs, probs[g.start : g.start + g.total], g.spans
+                    batch.jobs, probs[e.start : e.start + e.total], e.spans
                 )
                 self.stage_ms["finalize"].append((time.perf_counter() - t0) * 1e3)
-                self.stage_ms["pack"].append(g.pack_ms)
-                self.stage_ms["h2d"].append(g.h2d[0].ms_until(g.h2d[1]))
+                self.stage_ms["pack"].extend(e.pack_ms)
+                self.stage_ms["h2d"].append(e.h2d[0].ms_until(e.h2d[1]))
                 self.stage_ms["gather"].append(
-                    sum(a.ms_until(b) for a, b, _ in g.chunks)
-                )
+                    sum(a.ms_until(b) for a, b, _ in e.chunks))
                 self.stage_ms["kernel"].append(
-                    sum(b.ms_until(c) for _, b, c in g.chunks)
-                )
+                    sum(b.ms_until(c) for _, b, c in e.chunks))
+
+    def _fetch(self, batches: Sequence[_Batch], timeout: Optional[float]):
+        """Wait for the batches' D2H copies within the wedge budget.  With
+        a budget the wait runs on a side thread, so that a blocked one can
+        be abandoned."""
+        if timeout is None:
+            self._sync_d2h(batches)
+            return
+        if self._fetch_pool is None:
+            self._fetch_pool = _DaemonWorker("hc-fetch")
+        self._wait(self._fetch_pool.submit(self._sync_d2h, batches), "fetch",
+                   timeout)
+
+    @staticmethod
+    def _sync_d2h(batches: Sequence[_Batch]) -> None:
+        for b in batches:
+            if b.d2h is not None:
+                b.d2h[1].event.synchronize()
+
+    def _wait(self, fut: _WorkerFuture, where: str, timeout: Optional[float]):
+        """fut's result within the wedge budget.  A card that is alive but
+        slow (the probe finishes) gets MAX_SLOW_EXTENSIONS more budgets; a
+        failed probe, or the extensions running out, raises
+        DeviceWedgedError."""
+        for attempt in range(self.MAX_SLOW_EXTENSIONS + 1):
+            try:
+                return fut.result(timeout)
+            except _StillRunning:
+                if not self._probe_device_alive():
+                    break
+                self._note_slow(where, attempt)
+        self._wedged = where
+        for pool in (self._submit_pool, self._fetch_pool):
+            if pool is not None:
+                pool.abandoned = True
+        self._raise_if_wedged()
+
+    def _raise_if_wedged(self) -> None:
+        if self._wedged:
+            raise DeviceWedgedError(
+                f"gatk_hc_tpu_torch: device {self._wedged} unresponsive: "
+                f"nothing within {self.cfg.device_timeout_s:.0f}s and a fresh "
+                f"probe of {self.device} failed, or {self.MAX_SLOW_EXTENSIONS}"
+                " more budgets ran out; the card's work is not moved to the "
+                "CPU (rerun, or --pairhmm native)")
+
+    def _probe_device_alive(self, timeout_s: float = 30.0) -> bool:
+        """One tiny H2D + D2H round trip on a fresh daemon thread and a
+        fresh stream: True means the card is alive (merely slow); False
+        (the probe itself cannot finish) confirms a wedge.  A fresh thread
+        each time: the dispatch and fetch workers may be the blocked ones."""
+        ok = threading.Event()
+
+        def probe():
+            try:
+                x = torch.ones(8)
+                if self._stream is not None:
+                    with torch.cuda.stream(torch.cuda.Stream(self.device)):
+                        x = x.to(self.device).cpu()
+                if bool(x.sum() == 8):
+                    ok.set()
+            except Exception:  # noqa: BLE001 - an erroring probe after a
+                pass  # timeout is as good as a wedged one
+
+        t = threading.Thread(target=probe, daemon=True, name="hc-probe")
+        t.start()
+        # deliberately NOT exit-registered: a live probe finishes at once,
+        # and a blocked one is exactly the wedge we refuse to wait for
+        return ok.wait(timeout_s)
+
+    def _note_slow(self, where: str, attempt: int) -> None:
+        print(
+            f"[gatk_hc_tpu_torch] device {where} exceeded "
+            f"{self.cfg.device_timeout_s:.0f}s but the device probes alive "
+            f"(throttled phase) — waiting up to "
+            f"{self.MAX_SLOW_EXTENSIONS - attempt} more budget(s)",
+            file=sys.stderr, flush=True,
+        )
 
     def stage_medians(self) -> Dict[str, object]:
-        """Median ms per group of each stage (d2h: per submit), the summed
-        ms of each stage, and the device the times were taken on."""
+        """Median ms of each stage (per launch unit; "pack" per group,
+        "submit" and "d2h" per submit), the summed ms of each stage, and
+        the device the times were taken on."""
         out: Dict[str, object] = {
             s: round(statistics.median(v), 4)
             for s, v in self.stage_ms.items()
@@ -262,6 +718,83 @@ class TorchPairHMMRunner:
         return out
 
     # ------------------------------------------------------------------
+    def prewarm(self, shapes=None, block: bool = False):
+        """Launch each kernel instance the first bucket shapes use once, on
+        a tiny input and uncounted, on a daemon thread that overlaps the
+        host's parse and assembly: CUDA loads a kernel lazily at its first
+        launch, and this takes that cost off the first group.  ``shapes``
+        is an iterable of (r_pad, c_pad), by default every read bucket at
+        the first hap bucket.  An error is raised at the next submit."""
+        if shapes is None:
+            shapes = [(r, self.cfg.hap_pad_buckets[0])
+                      for r in self.cfg.read_pad_buckets]
+
+        def work():
+            if self._stream is None:
+                return  # the plain versions load nothing
+            try:
+                n = 0
+                with torch.cuda.stream(self._stream):
+                    for r_pad, c_pad in shapes:
+                        if self._prewarm_stop.is_set():
+                            break
+                        n += self._warm(self._round_rows(r_pad), c_pad)
+                    self._stream.synchronize()
+                self.init_profile["prewarm_launches"] = n
+            except Exception as exc:  # noqa: BLE001 - raised at next submit
+                self._prewarm_exc = exc
+
+        thread = threading.Thread(target=work, daemon=True, name="hc-prewarm")
+        thread.start()
+        _register_exit_wait(
+            lambda timeout: None if self._wedged else thread.join(timeout)
+        )
+        if block:
+            thread.join()
+        return thread
+
+    def stop_prewarm(self) -> None:
+        """Skip any prewarm shapes not yet started (called once the
+        pipeline has drained — further warming is pure exit latency)."""
+        self._prewarm_stop.set()
+
+    def _warm(self, r_pad: int, c_pad: int) -> int:
+        """One uncounted launch of each kernel instance the shape uses, on
+        one pair -> the number of launches."""
+        dev = self.device
+        ones = torch.ones(1, dtype=torch.int32, device=dev)
+        init_y = torch.ones(1, dtype=torch.float32, device=dev)
+        if self.striped:
+            from .pairhmm_striped import launch_striped
+
+            codes = torch.zeros((1, r_pad), dtype=torch.int32, device=dev)
+            probs = torch.zeros((1, r_pad), dtype=torch.float32, device=dev)
+            hap = torch.zeros((1, c_pad), dtype=torch.int32, device=dev)
+            launch_striped(codes, probs, probs, hap, ones, ones, init_y,
+                           self.trans, self.cfg.stripe_height)
+            return 1
+        from .pairhmm_packed import empty_outputs, launch_prologue
+        from .pairhmm_torch import launch_ppe
+
+        out = empty_outputs(r_pad, c_pad, 1, dev)
+        u8 = torch.zeros(2 * r_pad + c_pad, dtype=torch.uint8, device=dev)
+        lens = torch.ones(3, dtype=torch.int32, device=dev)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        spans = torch.zeros((8, 4), dtype=torch.int32, device=dev)
+        spans[0, 2:] = 1
+        mini = torch.zeros(72, dtype=torch.int32, device=dev)
+        launch_prologue("packed", u8, lens, zero, zero, self._ppe_tab, 1, 1,
+                        1, r_pad, c_pad, out=out, off=0)
+        launch_prologue("nib", u8, lens, mini, self._ppe_tab, spans, 8, 1, 1,
+                        1, r_pad, c_pad, out=out, off=0)
+        launch_ppe(*out, self.trans, self.cfg.ppe_rows)
+        return 3
+
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self._stream is not None:
+            self._stream.synchronize()
+
     def _round_rows(self, r: int) -> int:
         # striped: a multiple of the stripe height, which then divides r_pad
         a = self.cfg.stripe_height if self.striped else self.ROW_ALIGN
@@ -326,34 +859,57 @@ class TorchPairHMMRunner:
         return groups
 
     def _submit_group(self, jobs: Sequence[PairHMMJob], group: List[int],
-                      start: int):
-        # pairhmm_planes' two halves, inlined so each is timed
-        from .pairhmm_torch import gather_pairs, ppe_forward
-
+                      sink: Optional[List[_Payload]]) -> Optional[_Entry]:
+        """Pack one group in the chosen encoding and launch it, or, when
+        ``sink`` is given (fusion on) and the group is one chunk, defer its
+        payload there for _dispatch_fused."""
         t_pack = time.perf_counter()
         r_pad, c_pad = self._pads_for_group(jobs, group)
+        if self.striped:
+            path, calibrate = "striped", False
+        elif c_pad % 4:
+            # the prologue reads 4 bytes at a time: a hap bucket that is
+            # not a multiple of 4 (none of the defaults) ships planes
+            path, calibrate = "planes", False
+        else:
+            path, calibrate = self._path_ctl.choose()
+        if calibrate:
+            # time this group alone: pack to kernel end on the stream
+            self._sync()
+            t_pack = time.perf_counter()
+        u = self._unique_rows(jobs, group, r_pad, c_pad)
+        if path == "striped":
+            return self._launch_striped(self._pack_bytes(u, t_pack))
+        n_chunks = -(-u.total // self.pair_budget)
+        if path == "packed":
+            nib = (self._nib_encode(u.read_u8, u.qual_u8)
+                   if self.cfg.packed_nib and n_chunks == 1 else None)
+            # nib when the group's alphabets fit; otherwise (and for a
+            # group of several chunks) raw packed, counted as "packed"
+            payload = (self._pack_nib(u, *nib, t_pack) if nib is not None
+                       else self._pack_bytes(u, t_pack))
+        else:
+            payload = self._pack_planes(u, t_pack)
+        if n_chunks > 1:
+            entry = self._launch_chunks(payload)
+        elif sink is not None and not calibrate:
+            sink.append(payload)
+            return None
+        else:
+            entry = self._launch(payload.path, [payload])
+        if calibrate:
+            self._sync()
+            self._path_ctl.record(
+                path, (time.perf_counter() - t_pack) / max(u.total, 1))
+        return entry
+
+    def _unique_rows(self, jobs, group, r_pad, c_pad) -> _Unique:
+        """The group's unique reads and haps as 0-padded byte rows, their
+        lengths, INITIAL / haplen, and the per-job spans."""
         n_reads = sum(len(jobs[g].reads) for g in group)
         n_haps = sum(len(jobs[g].haps) for g in group)
         nr_pad = _bucket(n_reads, self.READ_BUCKETS)
         nh_pad = _bucket(n_haps, self.HAP_BUCKETS)
-
-        def pack_rows(seq_lists, n_pad, w_pad):
-            """Vectorized fill of (n_pad, w_pad) row tables from variable-
-            length uint8 arrays (a python per-row loop costs ~1.5us/row).
-            Rows are non-empty (PairHMMJob validates); padding rows default
-            to length 1."""
-            clipped = [s[:w_pad] for s in seq_lists]
-            lens = np.fromiter(
-                (len(s) for s in clipped), dtype=np.int64, count=len(clipped)
-            )
-            starts = np.arange(len(clipped), dtype=np.int64) * w_pad
-            within = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(
-                np.cumsum(lens) - lens, lens
-            )
-            pos = np.repeat(starts, lens) + within
-            out_lens = np.ones(n_pad, dtype=np.int32)
-            out_lens[: len(clipped)] = lens.astype(np.int32)
-            return pos, clipped, out_lens
 
         # Per-JOB read collection: columnar ReadPairs jobs contribute their
         # whole flat CSR buffers (no per-read views), generic tuple-list
@@ -380,16 +936,19 @@ class TorchPairHMMRunner:
             if len_parts
             else np.zeros(0, dtype=np.int64)
         )
-        starts = np.arange(lens.size, dtype=np.int64) * r_pad
-        within = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(
-            np.cumsum(lens) - lens, lens
-        )
-        rpos = np.repeat(starts, lens) + within
+        rpos = self._row_positions(lens, r_pad)
         read_lens = np.ones(nr_pad, dtype=np.int32)
         read_lens[: lens.size] = lens.astype(np.int32)
 
-        haps_flat = [h for g in group for h in jobs[g].haps]
-        hpos, hclip, hap_lens = pack_rows(haps_flat, nh_pad, c_pad)
+        # haps are clipped to c_pad (a vectorized fill: a python per-row
+        # loop costs ~1.5 us a row); padding rows default to length 1
+        hclip = [h[:c_pad] for g in group for h in jobs[g].haps]
+        hlens = np.fromiter((len(h) for h in hclip), dtype=np.int64,
+                            count=len(hclip))
+        hpos = self._row_positions(hlens, c_pad)
+        hap_lens = np.ones(nh_pad, dtype=np.int32)
+        hap_lens[: hlens.size] = hlens.astype(np.int32)
+
         read_u8 = np.zeros(nr_pad * r_pad, dtype=np.uint8)
         qual_u8 = np.zeros(nr_pad * r_pad, dtype=np.uint8)
         hap_u8 = np.zeros(nh_pad * c_pad, dtype=np.uint8)
@@ -402,131 +961,262 @@ class TorchPairHMMRunner:
                 qual_parts[0] if len(qual_parts) == 1
                 else np.concatenate(qual_parts)
             )
-        if haps_flat:
+        if hclip:
             hap_u8[hpos] = np.concatenate(hclip)
         hap_init_y = (
             INITIAL_CONSTANT_F32 / hap_lens.astype(np.float32)
         ).astype(np.float32)
 
-        # pair lists (read-major per job, jobs in group order), vectorized
         spans: List[Tuple[int, int, int, int]] = []  # (job, start, nr, nh)
-        pr_parts: List[np.ndarray] = []
-        ph_parts: List[np.ndarray] = []
+        bases: List[Tuple[int, int]] = []
         total = rb = hb = 0
         for g in group:
             nr, nh = len(jobs[g].reads), len(jobs[g].haps)
             spans.append((g, total, nr, nh))
-            pr_parts.append(
-                np.repeat(np.arange(rb, rb + nr, dtype=np.int32), nh)
-            )
-            ph_parts.append(
-                np.tile(np.arange(hb, hb + nh, dtype=np.int32), nr)
-            )
+            bases.append((rb, hb))
             total += nr * nh
             rb += nr
             hb += nh
+        return _Unique((nr_pad, nh_pad, r_pad, c_pad), read_u8, qual_u8,
+                       hap_u8, read_lens, hap_lens, hap_init_y, spans, bases,
+                       total)
 
-        if self.striped:
-            return self._submit_striped(
-                read_u8, qual_u8, hap_u8, read_lens, hap_lens, hap_init_y,
-                pr_parts, ph_parts, spans, start, total, t_pack,
-                (nr_pad, nh_pad, r_pad, c_pad),
-            )
-
-        # one host buffer: [planes | pair reads | pair haps], pinned for an
-        # asynchronous copy on the CUDA path
-        n_planes = nr_pad + 2 * nh_pad + 3 * nr_pad * r_pad + nh_pad * c_pad
-        cuda = self._stream is not None
-        host = torch.empty(n_planes + 2 * total, dtype=torch.int32,
-                           pin_memory=cuda)
-        host_np = host.numpy()
-        self._build_planes(
-            read_u8, qual_u8, hap_u8, read_lens, hap_lens, hap_init_y,
-            nr_pad, nh_pad, r_pad, c_pad, out=host_np[:n_planes],
+    @staticmethod
+    def _row_positions(lens: np.ndarray, width: int) -> np.ndarray:
+        """Flat positions of each row's bytes in a (rows, width) table."""
+        starts = np.arange(lens.size, dtype=np.int64) * width
+        within = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(
+            np.cumsum(lens) - lens, lens
         )
-        host_np[n_planes : n_planes + total] = np.concatenate(pr_parts)
-        host_np[n_planes + total :] = np.concatenate(ph_parts)
-        pack_ms = (time.perf_counter() - t_pack) * 1e3
+        return np.repeat(starts, lens) + within
 
-        h0 = _Stamp(self._stream)
-        dev = host.to(self.device, non_blocking=True) if cuda else host
-        h1 = _Stamp(self._stream)
-        buf = dev[:n_planes]
-        pairs = dev[n_planes:].view(2, total)
+    def _pack_planes(self, u: _Unique, t_pack: float) -> _Payload:
+        """[planes (i32, _build_planes) | pairs (2, total) i32]."""
+        nr_pad, nh_pad, r_pad, c_pad = u.dims
+        n_planes = nr_pad + 2 * nh_pad + 3 * nr_pad * r_pad + nh_pad * c_pad
+        buf = _HostBuffer([(np.int32, n_planes), (np.int32, 2 * u.total)],
+                          self._pinned)
+        self._build_planes(u.read_u8, u.qual_u8, u.hap_u8, u.read_lens,
+                           u.hap_lens, u.hap_init_y, *u.dims,
+                           out=buf.array(0))
+        u.pairs_into(buf.array(1))
+        return _Payload("planes", u.dims, buf, u.spans, u.total,
+                        (time.perf_counter() - t_pack) * 1e3)
+
+    def _pack_bytes(self, u: _Unique, t_pack: float) -> _Payload:
+        """Raw packed (and the striped path's shipping): [reads | quals |
+        haps] u8, [rlens | hlens | init_y bits] i32, pairs (2, total) i32."""
+        nr_pad, nh_pad, r_pad, c_pad = u.dims
+        nrr = nr_pad * r_pad
+        buf = _HostBuffer([(np.uint8, 2 * nrr + nh_pad * c_pad),
+                           (np.int32, nr_pad + 2 * nh_pad),
+                           (np.int32, 2 * u.total)], self._pinned)
+        u8 = buf.array(0)
+        u8[:nrr] = u.read_u8
+        u8[nrr : 2 * nrr] = u.qual_u8
+        u8[2 * nrr :] = u.hap_u8
+        u.lens_into(buf.array(1))
+        u.pairs_into(buf.array(2))
+        return _Payload("packed", u.dims, buf, u.spans, u.total,
+                        (time.perf_counter() - t_pack) * 1e3)
+
+    def _pack_nib(self, u: _Unique, nib_u8: np.ndarray, minitab: np.ndarray,
+                  t_pack: float) -> _Payload:
+        """Nib: [nib reads | haps] u8, [rlens | hlens | init_y bits] i32,
+        the 72-entry mini-table, and the span table [read_base, hap_base,
+        nr, nh] padded to a power of two of at least 8 rows (zero rows)."""
+        nr_pad, nh_pad, r_pad, c_pad = u.dims
+        nrr = nr_pad * r_pad
+        n_spans = 8
+        while n_spans < len(u.spans):
+            n_spans *= 2
+        buf = _HostBuffer([(np.uint8, nrr + nh_pad * c_pad),
+                           (np.int32, nr_pad + 2 * nh_pad), (np.int32, 72),
+                           (np.int32, 4 * n_spans)], self._pinned)
+        u8 = buf.array(0)
+        u8[:nrr] = nib_u8
+        u8[nrr:] = u.hap_u8
+        u.lens_into(buf.array(1))
+        buf.array(2)[:] = minitab
+        table = buf.array(3).reshape(n_spans, 4)
+        table[:] = 0
+        for k, ((_g, _s, nr, nh), (rb, hb)) in enumerate(zip(u.spans, u.bases)):
+            table[k] = (rb, hb, nr, nh)
+        return _Payload("packednib", u.dims, buf, u.spans, u.total,
+                        (time.perf_counter() - t_pack) * 1e3)
+
+    def _nib_encode(self, read_u8, qual_u8):
+        """Nibble-dictionary encoding of a group's read planes, or None
+        when the group's alphabets overflow (seq > 8 or qual > 32 distinct
+        bytes — never for ACGTN reads with binned qualities).  Byte 0 is
+        forced into both dictionaries at index 0 so the zero padding bytes
+        map to the exact values the raw-u8 encodings produce for them.
+        Returns ((nr_pad * r_pad,) u8 nibble bytes, (72,) i32 mini-table)."""
+        cs = np.bincount(read_u8.ravel(), minlength=256)
+        cs[0] += 1
+        seq_vals = np.nonzero(cs)[0]
+        if seq_vals.size > 8:
+            return None
+        cq = np.bincount(qual_u8.ravel(), minlength=256)
+        cq[0] += 1
+        qual_vals = np.nonzero(cq)[0]
+        if qual_vals.size > 32:
+            return None
+        lut_s = np.zeros(256, np.uint8)
+        lut_s[seq_vals] = np.arange(seq_vals.size, dtype=np.uint8)
+        lut_q = np.zeros(256, np.uint8)
+        lut_q[qual_vals] = np.arange(qual_vals.size, dtype=np.uint8)
+        nib = (lut_s[read_u8] << np.uint8(5)) | lut_q[qual_u8]
+        minitab = np.zeros(72, np.int32)
+        minitab[: seq_vals.size] = self._mask_tab[seq_vals]
+        minitab[8 : 8 + qual_vals.size] = self._omq_bits_tab[qual_vals]
+        minitab[40 : 40 + qual_vals.size] = self._q3_bits_tab[qual_vals]
+        return nib, minitab
+
+    def _prologue(self, p: _Payload, views, out, off: int):
+        """One group's pair-minor ppe inputs into pairs off.. of ``out``
+        (allocated when None): the gathers on the planes path, the
+        prologue kernel on the packed and nib paths."""
+        from .pairhmm_packed import prologue_nib, prologue_packed, write_at
+        from .pairhmm_torch import gather_pairs
+
+        if p.path == "planes":
+            vals = gather_pairs(views[0], views[1].view(2, p.total), *p.dims)
+            return vals if out is None else write_at(out, off, vals)
+        if p.path == "packed":
+            pairs = views[2].view(2, p.total)
+            return prologue_packed(views[0], views[1], pairs[0], pairs[1],
+                                   self._ppe_tab, *p.dims, out=out, off=off)
+        return prologue_nib(views[0], views[1], views[2], self._ppe_tab,
+                            views[3].view(-1, 4), p.total, *p.dims, out=out,
+                            off=off)
+
+    def _launch(self, path: str, payloads: List[_Payload]) -> _Entry:
+        """k single-chunk groups of one path and one (r_pad, c_pad): one
+        host buffer and one H2D copy, each group's gather or prologue into
+        its own pair offset of one pair-minor buffer, ONE ppe launch over
+        the sum of their pairs.  k = 1 is the unfused launch."""
+        from .pairhmm_packed import empty_outputs
+        from .pairhmm_torch import ppe_forward
+
+        k = len(payloads)
+        label = path if k == 1 else _FUSE_LABEL[path] + str(k)
+        self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
+        stream = self._stream
+        if k == 1:
+            buf, pack_ms = payloads[0].buf, [payloads[0].pack_ms]
+        else:
+            t0 = time.perf_counter()
+            buf = _HostBuffer([s for p in payloads for s in p.buf.specs],
+                              self._pinned)
+            at = 0
+            for p in payloads:
+                for j in range(len(p.buf.specs)):
+                    buf.array(at + j)[:] = p.buf.array(j)
+                at += len(p.buf.specs)
+            share = (time.perf_counter() - t0) * 1e3 / k
+            pack_ms = [p.pack_ms + share for p in payloads]
+        h0 = _Stamp(stream)
+        views = buf.ship(self.device)
+        h1 = _Stamp(stream)
+        total = sum(p.total for p in payloads)
+        r_pad, c_pad = payloads[0].dims[2:]
+        s0 = _Stamp(stream)
+        out = None if k == 1 else empty_outputs(r_pad, c_pad, total,
+                                                self.device)
+        spans: List[Tuple[int, int, int, int]] = []
+        off = at = 0
+        for p in payloads:
+            n = len(p.buf.specs)
+            out = self._prologue(p, views[at : at + n], out, off)
+            spans.extend((g, off + s, nr, nh) for g, s, nr, nh in p.spans)
+            off += p.total
+            at += n
+        s1 = _Stamp(stream)
+        res = ppe_forward(*out, self.trans, self.cfg.ppe_rows)
+        return _Entry(spans, total, pack_ms, (h0, h1),
+                      [(s0, s1, _Stamp(stream))], [res], buf)
+
+    def _launch_chunks(self, p: _Payload) -> _Entry:
+        """A group of several chunks (one oversized job): one H2D copy,
+        then per chunk the gather ("planes") or the packed prologue over
+        the chunk's pairs ("packed-split") and a ppe launch."""
+        from .pairhmm_packed import prologue_packed
+        from .pairhmm_torch import gather_pairs, ppe_forward
+
+        stream = self._stream
+        h0 = _Stamp(stream)
+        views = p.buf.ship(self.device)
+        h1 = _Stamp(stream)
+        planes = p.path == "planes"
+        label = "planes" if planes else "packed-split"
+        pairs = views[1 if planes else 2].view(2, p.total)
         outs, chunks = [], []
-        for off in range(0, total, self.pair_budget):
-            size = min(self.pair_budget, total - off)
-            s0 = _Stamp(self._stream)
-            args = gather_pairs(
-                buf, pairs[:, off : off + size], nr_pad, nh_pad, r_pad, c_pad
-            )
-            s1 = _Stamp(self._stream)
+        for off in range(0, p.total, self.pair_budget):
+            size = min(self.pair_budget, p.total - off)
+            s0 = _Stamp(stream)
+            if planes:
+                args = gather_pairs(views[0], pairs[:, off : off + size],
+                                    *p.dims)
+            else:
+                args = prologue_packed(
+                    views[0], views[1], pairs[0, off : off + size],
+                    pairs[1, off : off + size], self._ppe_tab, *p.dims)
+            s1 = _Stamp(stream)
             outs.append(ppe_forward(*args, self.trans, self.cfg.ppe_rows))
-            chunks.append((s0, s1, _Stamp(self._stream)))
-            self.dispatch_counts["planes"] = (
-                self.dispatch_counts.get("planes", 0) + 1
-            )
-        return _Group(spans, start, total, pack_ms, (h0, h1), chunks), outs
+            chunks.append((s0, s1, _Stamp(stream)))
+            self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
+        return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
+                      p.buf)
 
-    def _submit_striped(self, read_u8, qual_u8, hap_u8, read_lens, hap_lens,
-                        hap_init_y, pr_parts, ph_parts, spans, start, total,
-                        t_pack, pads):
-        """The striped kernel's shipping path (the counterpart of the
-        reference runner's raw-byte branch): one host buffer
-        [reads | quals | haps] uint8, padded to 4 bytes, then
-        [read lens | hap lens | init_y bits | pair reads | pair haps] i32;
-        one copy to the card; the base and Phred tables applied there once
-        per group; a pair gather and a striped launch per chunk."""
+    def _dispatch_fused(self, payloads: List[_Payload]) -> List[_Entry]:
+        """Launch deferred single-chunk groups, fusing up to
+        cfg.fuse_groups of the same path and the same (r_pad, c_pad) into
+        one launch each.  The port's groups launch exact sizes, so no
+        chunk size enters the key."""
+        buckets: Dict[Tuple[str, int, int], List[_Payload]] = {}
+        for p in payloads:
+            buckets.setdefault((p.path, *p.dims[2:]), []).append(p)
+        width = self.cfg.fuse_groups
+        return [
+            self._launch(path, ps[i : i + width])
+            for (path, _r, _c), ps in buckets.items()
+            for i in range(0, len(ps), width)
+        ]
+
+    def _launch_striped(self, p: _Payload) -> _Entry:
+        """The striped kernel's path (the reference runner's raw-byte
+        branch): the raw packed payload in one copy to the card, the base
+        and Phred tables applied there once per group, then a pair gather
+        and a striped launch per chunk."""
         from .pairhmm_striped import (
             gather_pairs_striped, prepare_tables_striped, striped_forward,
         )
 
-        nr_pad, nh_pad, r_pad, c_pad = pads
-        nrr = nr_pad * r_pad
-        n_u8 = 2 * nrr + nh_pad * c_pad
-        i32_at = (n_u8 + 3) // 4 * 4
-        head = nr_pad + 2 * nh_pad
-        cuda = self._stream is not None
-        host = torch.empty(i32_at + 4 * (head + 2 * total), dtype=torch.uint8,
-                           pin_memory=cuda)
-        host_np = host.numpy()
-        host_np[:nrr] = read_u8
-        host_np[nrr : 2 * nrr] = qual_u8
-        host_np[2 * nrr : n_u8] = hap_u8
-        ints = host_np[i32_at:].view(np.int32)
-        ints[:nr_pad] = read_lens
-        ints[nr_pad : nr_pad + nh_pad] = hap_lens
-        ints[nr_pad + nh_pad : head] = hap_init_y.view(np.int32)
-        ints[head : head + total] = np.concatenate(pr_parts)
-        ints[head + total :] = np.concatenate(ph_parts)
-        pack_ms = (time.perf_counter() - t_pack) * 1e3
-
-        h0 = _Stamp(self._stream)
-        dev = host.to(self.device, non_blocking=True) if cuda else host
-        h1 = _Stamp(self._stream)
-        u8buf = dev[:n_u8]
-        i32buf = dev[i32_at:].view(torch.int32)
-        pairs = i32buf[head:].view(2, total)
+        stream = self._stream
+        h0 = _Stamp(stream)
+        views = p.buf.ship(self.device)
+        h1 = _Stamp(stream)
+        pairs = views[2].view(2, p.total)
         tables = None
         outs, chunks = [], []
-        for off in range(0, total, self.pair_budget):
-            size = min(self.pair_budget, total - off)
-            s0 = _Stamp(self._stream)
+        for off in range(0, p.total, self.pair_budget):
+            size = min(self.pair_budget, p.total - off)
+            s0 = _Stamp(stream)
             if tables is None:  # once per group, timed with the gather
                 tables = prepare_tables_striped(
-                    u8buf, i32buf, *self._striped_tabs,
-                    nr_pad, nh_pad, r_pad, c_pad,
-                )
+                    views[0], views[1], *self._striped_tabs, *p.dims)
             args = gather_pairs_striped(*tables, pairs[:, off : off + size])
-            s1 = _Stamp(self._stream)
+            s1 = _Stamp(stream)
             outs.append(
                 striped_forward(*args, self.trans, self.cfg.stripe_height)
             )
-            chunks.append((s0, s1, _Stamp(self._stream)))
+            chunks.append((s0, s1, _Stamp(stream)))
             self.dispatch_counts["striped"] = (
                 self.dispatch_counts.get("striped", 0) + 1
             )
-        return _Group(spans, start, total, pack_ms, (h0, h1), chunks), outs
+        return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
+                      p.buf)
 
     def _build_planes(self, read_u8, qual_u8, hap_u8, read_lens, hap_lens,
                       hap_init_y, nr_pad, nh_pad, r_pad, c_pad, out=None):
@@ -537,7 +1227,8 @@ class TorchPairHMMRunner:
         head = nr_pad + 2 * nh_pad
         size = head + 3 * nrr + nh_pad * c_pad
         buf = np.empty(size, np.int32) if out is None else out
-        assert buf.shape == (size,) and buf.dtype == np.int32
+        if buf.shape != (size,) or buf.dtype != np.int32:
+            raise ValueError(f"plane buffer must be ({size},) int32")
         buf[:nr_pad] = read_lens
         buf[nr_pad : nr_pad + nh_pad] = hap_lens
         buf[nr_pad + nh_pad : head] = hap_init_y.view(np.int32)
@@ -584,6 +1275,100 @@ def torch_pairhmm_engine(cfg: HCConfig, device="cuda"):
         return job.result
 
     return engine
+
+
+class BackgroundRunner:
+    """Cold-start overlap: on a background thread, builds and loads the
+    kernel libraries (ops/_kernels.py), initialises the CUDA context and
+    the device tables (the TorchPairHMMRunner constructor), and starts the
+    runner's prewarm, so that those seconds run concurrently with the
+    host's parse and assembly.  The first submit/drain/run joins the build.
+    A build or CUDA error is stored and raised at first use; a build still
+    running after cfg.device_timeout_s raises DeviceWedgedError there."""
+
+    def __init__(self, cfg: HCConfig, device="cuda"):
+        self.cfg = cfg
+        self._runner = None
+        self._exc: Optional[BaseException] = None
+        self._stop_requested = False
+
+        def build():
+            try:
+                t0 = time.perf_counter()
+                runner = TorchPairHMMRunner(cfg, device=device)
+                runner.init_profile["build_start_at_age_s"] = round(
+                    _process_age_s() - (time.perf_counter() - t0), 3)
+                runner.init_profile["runner_ctor_s"] = round(
+                    time.perf_counter() - t0, 3)
+                if runner.device.type == "cuda":
+                    from . import _kernels
+
+                    t1 = time.perf_counter()
+                    _kernels.build_all()  # one nvcc per source, together
+                    for name in _kernels.KERNELS:
+                        _kernels.load(name)
+                    runner.init_profile["kernel_build_load_s"] = round(
+                        time.perf_counter() - t1, 3)
+                self._runner = runner
+                if self._stop_requested:
+                    runner.stop_prewarm()
+                else:
+                    t2 = time.perf_counter()
+                    runner.prewarm()
+                    runner.init_profile["prewarm_kickoff_s"] = round(
+                        time.perf_counter() - t2, 3)
+            except BaseException as exc:  # surfaced on first use
+                self._exc = exc
+
+        # daemon + bounded atexit join: a build wedged in a dead device
+        # call must not block process exit
+        self._build_abandoned = False
+        self._thread = threading.Thread(target=build, daemon=True,
+                                        name="hc-build")
+        self._thread.start()
+        _register_exit_wait(
+            lambda timeout: None
+            if self._build_abandoned
+            else self._thread.join(timeout)
+        )
+
+    def _get(self):
+        if self._exc is None:
+            timeout = self.cfg.device_timeout_s or None
+            self._thread.join(timeout)
+            # a thread still alive with the runner built is only starting
+            # its prewarm: usable
+            if self._runner is None and self._thread.is_alive():
+                self._build_abandoned = True
+                self._exc = DeviceWedgedError(
+                    f"gatk_hc_tpu_torch: device backend init unresponsive "
+                    f"for {timeout:.0f}s (kernel build, CUDA context or "
+                    "device tables); the card's work is not moved to the CPU")
+        if self._exc is not None:
+            raise self._exc
+        return self._runner
+
+    @property
+    def runner(self):
+        """The built runner (joins the build)."""
+        return self._get()
+
+    def submit(self, jobs):
+        return self._get().submit(jobs)
+
+    def drain(self, batches):
+        return self._get().drain(batches)
+
+    def run(self, jobs):
+        return self._get().run(jobs)
+
+    def prewarm(self, *args, **kwargs):  # already warming in the build thread
+        return None
+
+    def stop_prewarm(self) -> None:
+        self._stop_requested = True
+        if self._runner is not None:
+            self._runner.stop_prewarm()
 
 
 class NativePairHMMRunner:

@@ -17,6 +17,7 @@ from gatk_hc_tpu_torch import cli
 from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
 from gatk_hc_tpu_torch.models.caller import call_batched
 from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
+from tests.test_torch_runner import one_torch_thread  # noqa: F401 - autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "fixtures")

@@ -7,6 +7,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from gatk_hc_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT_CONFIG
 from gatk_hc_tpu.ops.runner import NativePairHMMRunner as JaxNativeRunner
@@ -18,6 +19,19 @@ from tests.test_pairhmm import make_pair, to_bytes
 TINY_CFG = dataclasses.replace(
     DEFAULT_CONFIG, read_pad_buckets=(32,), hap_pad_buckets=(128,)
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the plain versions (many small ops), in every
+    port test file that runs the runner on the CPU (they import this
+    fixture): with several test processes on one host, OpenMP teams spin on
+    each other and a run that takes seconds alone takes minutes.  The
+    runner's dispatch worker inherits it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def tiny_runner(pair_budget=256):

@@ -124,6 +124,25 @@ def test_config_from_reference_default():
     }
 
 
+def test_config_from_reference_carries_dispatch_keys():
+    """The reference's dispatch settings cross unchanged (only pair_batch,
+    the TPU tile width, is dropped)."""
+    ref = dataclasses.replace(
+        jax_config.DEFAULT_CONFIG, dispatch_mode="packed", packed_nib=False,
+        fuse_groups=8, fuse_auto=False, device_timeout_s=30.0, pair_batch=256,
+    )
+    got = convert.config_from_reference(dataclasses.asdict(ref))
+    assert (got.dispatch_mode, got.packed_nib, got.fuse_groups,
+            got.fuse_auto, got.device_timeout_s) == ("packed", False, 8,
+                                                     False, 30.0)
+    assert convert.TPU_ONLY_KEYS == ("pair_batch",)
+    default = convert.config_from_reference(
+        dataclasses.asdict(jax_config.DEFAULT_CONFIG))
+    for key in ("dispatch_mode", "packed_nib", "fuse_groups", "fuse_auto",
+                "device_timeout_s"):
+        assert getattr(default, key) == getattr(jax_config.DEFAULT_CONFIG, key)
+
+
 def test_config_from_reference_carries_values():
     """Ported settings cross unchanged, the kernel selection included:
     pallas_algo and stripe_height are carried, not dropped."""
