@@ -7,15 +7,17 @@ Run from the root of a checkout.  It builds every CUDA kernel of the port
 from the checkout's sources, holds each kernel against its plain PyTorch
 version (and the NumPy oracle) at the shapes the main path gives it and
 at one shape with reads longer than 256 rows, then
-holds the prologue kernel's two entry points (packed and nib shipping)
-against their plain versions at every bucket shape, then drives the port's
-main path — the CLI, SAM + FASTA -> VCF with the CUDA PairHMM behind the
-runner's dispatch worker, through the ppe kernel (the default, adaptive
-shipping), each shipping path (--dispatch-mode planes / packed, with and
-without --no-packed-nib, fused with --no-fuse-auto) and the striped kernel
-(--pallas-algo striped) — on the chrM fixture (byte-identical to the golden
-VCF) and on a 2 Mb contig at 30x (byte-identical to the port's native C++
-engine).
+holds the ppe kernel's unique-rows entry (one launch that reads a group's
+shipped unique rows itself) against its plain version for each shipping
+encoding (planes, packed, nib) at every bucket shape and at that long
+shape, fused over three groups and on a chunk of one, then drives the
+port's main path — the CLI, SAM + FASTA -> VCF with the CUDA PairHMM
+behind the runner's dispatch worker, through the ppe kernel (the default,
+adaptive shipping), each shipping path (--dispatch-mode planes / packed,
+with and without --no-packed-nib, fused with --no-fuse-auto) and the
+striped kernel (--pallas-algo striped) — on the chrM fixture
+(byte-identical to the golden VCF) and on a 2 Mb contig at 30x
+(byte-identical to the port's native C++ engine).
 Every phase prints one JSON line and raises on failure.  The last lines are
 the card's name and power limit (nvidia-smi), one JSON object per kernel
 with its times, launches and bound, and ``{"ok": true, "device": ...}``.
@@ -27,6 +29,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -51,11 +54,15 @@ PPE_REPLACES = {
     4: "gatk_hc_tpu/ops/pairhmm_pallas.py:588",
     8: "gatk_hc_tpu/ops/pairhmm_pallas.py:589",
 }
-PROLOGUE_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_prologue.cu"
-# the jnp glue each entry point replaces (not Pallas kernels)
-PROLOGUE_REPLACES = {
-    "prologue_packed": "gatk_hc_tpu/ops/pairhmm_pallas.py:1034",
-    "prologue_nib": "gatk_hc_tpu/ops/pairhmm_pallas.py:1254",
+# the jnp glue each source of the unique-rows entry replaces (not Pallas
+# kernels): _unpack_planes + the gathers of pairhmm_pallas_planes,
+# _unpack_u8_ppe + dispatch_pairs_ppe, _unpack_nib_ppe +
+# _expand_pairs_from_spans
+FRONTS = ("planes", "packed", "nib")
+FRONT_REPLACES = {
+    "planes": "gatk_hc_tpu/ops/pairhmm_pallas.py:935",
+    "packed": "gatk_hc_tpu/ops/pairhmm_pallas.py:1034",
+    "nib": "gatk_hc_tpu/ops/pairhmm_pallas.py:1254",
 }
 STRIPED_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_striped.cu"
 STRIPED_REPLACES = "gatk_hc_tpu/ops/pairhmm_pallas.py:59"
@@ -113,7 +120,7 @@ def instance_name(mangled: str) -> str:
     """A kernel instance's short name from its mangled symbol:
     ppe_forward_kernel<5, false> -> "ppe_k5", <8, true> -> "ppe_k8_carry",
     striped_forward_kernel<16, 10, false> -> "striped16_k10", <8, 16, true>
-    -> "striped8_k16_carry", prologue_nib_kernel -> "prologue_nib"."""
+    -> "striped8_k16_carry"."""
     import re
 
     m = re.search(r"striped_forward_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
@@ -123,20 +130,16 @@ def instance_name(mangled: str) -> str:
     m = re.search(r"ppe_forward_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"ppe_k{m.group(1)}" + ("_carry" if m.group(2) == "1" else "")
-    m = re.search(r"(prologue_(?:packed|nib))_kernel", mangled)
-    if m:
-        return m.group(1)
     return mangled
 
 
 def expected_instances(name: str):
     """Every instance a kernel library must hold: ppe K 1-8 with and
-    without the carry; striped per H, K 1..KMAX(H), and K > KMAX(H) / 2
-    with the carry (the rows-per-lane rule carries only there)."""
+    without the carry (both entries, every source, share them); striped
+    per H, K 1..KMAX(H), and K > KMAX(H) / 2 with the carry (the
+    rows-per-lane rule carries only there)."""
     if name == "pairhmm_ppe":
         return {f"ppe_k{k}{c}" for k in range(1, 9) for c in ("", "_carry")}
-    if name == "pairhmm_prologue":
-        return {"prologue_packed", "prologue_nib"}
     from gatk_hc_tpu_torch.ops.pairhmm_striped import MAX_ROWS_PER_LANE
 
     return {f"striped{h}_k{k}{c}" for h, kmax in MAX_ROWS_PER_LANE.items()
@@ -286,6 +289,24 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def time_ms_queued(fn, reps: int) -> float:
+    """ms per call of ``fn`` run ``reps`` times back to back between two
+    CUDA events, warmed up: the host enqueues ahead of the card, so the
+    wrapper's own time hides behind the kernels' (``time_ms`` waits for
+    each call and counts it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def striped_inputs(read, qual, rlen, hap, clen, device):
     """Pair-major striped inputs on ``device``: base codes, 1 - q, q / 3
     (the runner's host tables), lengths and INITIAL / haplen."""
@@ -433,7 +454,7 @@ def phase_kernels():
     return results
 
 
-def prologue_group(rng, r_pad, c_pad):
+def main_group(rng, r_pad, c_pad):
     """One main-path-sized group as the runner packs it: 256 jobs of 64
     reads x 4 haps (65,536 pairs, 16,384 unique reads, 1,024 unique haps),
     bytes from make_pairs -> the runner's _Unique rows."""
@@ -454,81 +475,135 @@ def prologue_group(rng, r_pad, c_pad):
                    bases, jobs * nr * nh)
 
 
-def prologue_bound(u, nbytes_in):
-    """The least time of one prologue launch in ms: each output written
-    once (rows 12 r_pad, hap 4 c_pad, rlen / clen / init_y 12 bytes a
-    pair) and each input byte read once, over HBM bandwidth; it computes
-    nothing."""
-    _nr, _nh, r_pad, c_pad = u.dims
-    out = u.total * (12 * r_pad + 4 * c_pad + 12)
-    return 1e3 * (out + nbytes_in) / PEAK_HBM_BYTES
+def pack_group(runner, path, u):
+    """The runner's payload of group ``u`` in ``path``'s encoding."""
+    t0 = time.perf_counter()
+    if path == "planes":
+        return runner._pack_planes(u, t0)
+    if path == "packed":
+        return runner._pack_bytes(u, t0)
+    return runner._pack_nib(u, *runner._nib_encode(u.read_u8, u.qual_u8), t0)
 
 
-def phase_prologue():
-    """Both prologue entry points against their plain versions (all five
-    outputs bit for bit) at B = 65,536 and every (r_pad, c_pad) of the
-    default buckets, on a group packed by the runner's own host code."""
+def segment_pairs(u, start, n):
+    """(rlen, clen) of pairs start .. start + n - 1 of group ``u``
+    (read-major per job, jobs in order)."""
+    import numpy as np
+
+    pr = np.concatenate([np.repeat(np.arange(rb, rb + nr), nh)
+                         for (_g, _s, nr, nh), (rb, _hb)
+                         in zip(u.spans, u.bases)])
+    ph = np.concatenate([np.tile(np.arange(hb, hb + nh), nr)
+                         for (_g, _s, nr, nh), (_rb, hb)
+                         in zip(u.spans, u.bases)])
+    sl = slice(start, start + n)
+    return u.read_lens[pr[sl]], u.hap_lens[ph[sl]]
+
+
+def phase_front():
+    """The ppe kernel's unique-rows entry against its plain version (the
+    plain glue, then ppe_forward_plain, on the card), bit for bit, for
+    each shipping encoding on a group packed by the runner's own host
+    code: B = 65,536 at every (r_pad, c_pad) of the default buckets and at
+    CARRY_SHAPE, then at REPORT_SHAPE three groups in one fused launch and
+    pairs 12,345 .. 52,344 of one group as a chunk.  Each row also times
+    the pair-minor entry (ppe<NR>) on the glue's inputs, in turns with the
+    entry (``time_ms`` and ``time_ms_queued``), and the glue alone, and
+    gives the device-memory peak of the entry and of glue + ppe."""
     import numpy as np
     import torch
 
     from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
-    from gatk_hc_tpu_torch.ops import pairhmm_packed as pk
-    from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
+    from gatk_hc_tpu_torch.ops import pairhmm_front as pf
+    from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
+    from gatk_hc_tpu_torch.ops.runner import (
+        TorchPairHMMRunner, join_payloads, segments_of,
+    )
 
     runner = TorchPairHMMRunner(DEFAULT_CONFIG, device="cuda")
+    trans, tab, nr = runner.trans, runner._ppe_tab, DEFAULT_CONFIG.ppe_rows
     rng = np.random.default_rng(20261017)
+    shapes = [(r, c) for r in DEFAULT_CONFIG.read_pad_buckets
+              for c in DEFAULT_CONFIG.hap_pad_buckets] + [CARRY_SHAPE]
+    cases = [(shape, "group") for shape in shapes]
+    cases += [(REPORT_SHAPE, "fused3"), (REPORT_SHAPE, "chunk")]
     results = {}
-    for r_pad in DEFAULT_CONFIG.read_pad_buckets:
-        for c_pad in DEFAULT_CONFIG.hap_pad_buckets:
-            u = prologue_group(rng, r_pad, c_pad)
-            cases = {
-                "prologue_packed": runner._pack_bytes(u, time.perf_counter()),
-                "prologue_nib": runner._pack_nib(
-                    u, *runner._nib_encode(u.read_u8, u.qual_u8),
-                    time.perf_counter()),
+
+    def peak_mb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    for (r_pad, c_pad), kind in cases:
+        groups = [main_group(rng, r_pad, c_pad)
+                  for _ in range(3 if kind == "fused3" else 1)]
+        for path in FRONTS:
+            payloads = [pack_group(runner, path, u) for u in groups]
+            buf = join_payloads(payloads, runner._pinned)
+            segs = segments_of(payloads, buf.ship(runner.device))
+            if kind == "chunk":
+                segs = [dataclasses.replace(segs[0], start=12345, n=40000)]
+            torch.cuda.synchronize()
+            front = lambda: pf.ppe_forward_unique(  # noqa: E731
+                path, segs, tab, trans, nr)
+            got, front_mb = peak_mb(front)
+            want, plain_ms = timed_once(
+                lambda: pf.ppe_forward_unique_plain(path, segs, tab, trans))
+            def glue():  # the plain glue's pair-minor inputs
+                parts = [pf.segment_inputs(path, g, tab) for g in segs]
+                return parts[0] if len(parts) == 1 else [
+                    torch.cat([p[k] for p in parts], -1) for k in range(5)]
+
+            minor, glue_mb = peak_mb(
+                lambda: pt.ppe_forward(*glue(), trans, nr))
+            args = glue()
+            pair_minor = lambda: pt.ppe_forward(*args, trans, nr)  # noqa: E731
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            same_minor = torch.equal(got.view(torch.int32),
+                                     minor.view(torch.int32))
+            pairs = [segment_pairs(u, g.start, g.count)
+                     for u, g in zip(groups, segs)]
+            rlen = np.concatenate([p[0] for p in pairs])
+            clen = np.concatenate([p[1] for p in pairs])
+            bound_ms, bound_by = ppe_bound(rlen, clen, c_pad)
+            name = f"ppe_front_{path}"
+            row = {
+                "phase": "kernel", "name": name, "case": kind,
+                "B": int(got.numel()), "r_pad": r_pad, "c_pad": c_pad,
+                "segments": len(segs),
+                "nr_pad": groups[0].dims[0], "nh_pad": groups[0].dims[1],
+                "bit_equal_plain": same, "bit_equal_pair_minor": same_minor,
+                "max_abs_err": float((got - want).abs().max()),
+                "plain_ms": round(plain_ms, 3),
+                "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
+                "library_ms": None,
+                "peak_mb_entry": round(front_mb, 1),
+                "peak_mb_glue_and_ppe": round(glue_mb, 1),
             }
-            for name, payload in cases.items():
-                views = payload.buf.ship(runner.device)
-                torch.cuda.synchronize()
-                tab = runner._ppe_tab
-                if name == "prologue_packed":
-                    pairs = views[2].view(2, u.total)
-                    args = (views[0], views[1], pairs[0], pairs[1], tab,
-                            *u.dims)
-                    kernel = lambda: pk.prologue_packed(*args)  # noqa: E731
-                    plain = lambda: pk.prologue_packed_plain(*args)  # noqa: E731
-                else:
-                    args = (views[0], views[1], views[2], tab,
-                            views[3].view(-1, 4), u.total, *u.dims)
-                    kernel = lambda: pk.prologue_nib(*args)  # noqa: E731
-                    plain = lambda: pk.prologue_nib_plain(*args)  # noqa: E731
-                got = kernel()
-                want, plain_ms = timed_once(plain)
-                torch.cuda.synchronize()
-                same = [torch.equal(g.view(torch.int32), w.view(torch.int32))
-                        for g, w in zip(got, want)]
-                nbytes_in = sum(v.numel() * v.element_size() for v in views)
-                row = {
-                    "phase": "kernel", "name": name, "B": u.total,
-                    "r_pad": r_pad, "c_pad": c_pad,
-                    "nr_pad": u.dims[0], "nh_pad": u.dims[1],
-                    "bit_equal_plain": all(same),
-                    "max_abs_err": 0.0 if all(same) else float("inf"),
-                    "plain_ms": round(plain_ms, 3),
-                    "bound_ms": round(prologue_bound(u, nbytes_in), 4),
-                    "bound_by": "bytes", "library_ms": None,
-                    "input_bytes": nbytes_in,
-                }
-                if not all(same):
-                    emit(row)
-                    raise AssertionError(
-                        f"{name} at r_pad={r_pad} c_pad={c_pad}: outputs "
-                        f"differ from the plain version: {same}")
-                row["ms"] = round(time_ms(kernel, 10), 4)
-                row["pct_of_bound"] = round(
-                    100 * row["bound_ms"] / row["ms"], 1)
+            if not (same and same_minor):
                 emit(row)
-                results[(name, r_pad, c_pad)] = row
+                raise AssertionError(
+                    f"{name} {kind} at r_pad={r_pad} c_pad={c_pad}: entry "
+                    f"differs from plain ({same}) or the pair-minor entry "
+                    f"({same_minor})")
+            # the entry and ppe<NR> on the glue's inputs in turns, one
+            # launch at a time and queued back to back
+            turns = {}
+            for key, fn in (("", front), ("pair_minor_", pair_minor),
+                            ("pair_minor_", pair_minor), ("", front)):
+                turns.setdefault(key + "ms", []).append(time_ms(fn, 10))
+                turns.setdefault(key + "queued_ms", []).append(
+                    time_ms_queued(fn, 10))
+            row.update({k: round(statistics.median(v), 4)
+                        for k, v in turns.items()})
+            row["glue_ms"] = round(time_ms(glue, 10), 4)
+            row["pct_of_bound"] = round(100 * row["bound_ms"] / row["ms"], 1)
+            emit(row)
+            results[(name, r_pad, c_pad, kind)] = row
     return results
 
 
@@ -555,27 +630,43 @@ def run_cli(argv):
 # labels it may show).  adaptive calibrates only past 32 groups, so the
 # default run may add the nib path on the 2 Mb contig.
 PATH_RUNS = {
-    "planes": (["--dispatch-mode", "planes"], {"ppe4"}, {"ppe4"},
-               {"planes"}),
-    "nib": (["--dispatch-mode", "packed"], {"ppe4", "prologue_nib"},
-            {"ppe4", "prologue_nib", "prologue_packed"},
+    "planes": (["--dispatch-mode", "planes"], {"ppe4", "ppe_front_planes"},
+               {"ppe4", "ppe_front_planes"}, {"planes"}),
+    "nib": (["--dispatch-mode", "packed"], {"ppe4", "ppe_front_nib"},
+            {"ppe4", "ppe_front_nib", "ppe_front_packed"},
             {"packednib", "packed"}),
     "packed": (["--dispatch-mode", "packed", "--no-packed-nib"],
-               {"ppe4", "prologue_packed"}, {"ppe4", "prologue_packed"},
+               {"ppe4", "ppe_front_packed"}, {"ppe4", "ppe_front_packed"},
                {"packed"}),
     "fused": (["--dispatch-mode", "packed", "--no-fuse-auto"],
-              {"ppe4", "prologue_nib"},
-              {"ppe4", "prologue_nib", "prologue_packed"},
+              {"ppe4", "ppe_front_nib"},
+              {"ppe4", "ppe_front_nib", "ppe_front_packed"},
               {"packednib", "packed", "packednibfused2", "packednibfused3",
                "packednibfused4", "packedfused2", "packedfused3",
                "packedfused4"}),
 }
 
 
+def one_launch_per_unit(name, stats):
+    """Every ppe launch of a run is a launch of the unique-rows entry, and
+    one per launch unit: the ppe launches equal the front launches and the
+    launches the dispatch_profile counts.  Raises otherwise."""
+    launches = stats["launches"]
+    ppe = sum(n for k, n in launches.items()
+              if k.startswith("ppe") and k[3:].isdigit())
+    front = sum(n for k, n in launches.items() if k.startswith("ppe_front"))
+    units = sum((stats.get("dispatch_profile") or {}).values())
+    if not ppe == front == units:
+        raise AssertionError(
+            f"{name}: ppe launches {ppe}, front launches {front}, launch "
+            f"units {units}: {launches}")
+
+
 def check_run(name, stats, must, may, labels, fused=False):
     """A run's launches and labels against its path: raises on a kernel
     that was not launched or should not have been, on a label of another
-    path, and on a fused run without a fused label."""
+    path, on a fused run without a fused label, and on a ppe run whose
+    launch units took more than one launch each."""
     launched = {k for k, n in stats["launches"].items() if n}
     profile = set(stats.get("dispatch_profile") or {})
     ok = (must <= launched <= may and profile <= labels
@@ -584,6 +675,8 @@ def check_run(name, stats, must, may, labels, fused=False):
         raise AssertionError(
             f"{name}: launches {stats['launches']}, dispatch_profile "
             f"{stats.get('dispatch_profile')}")
+    if not any(k.startswith("striped") for k in launched):
+        one_launch_per_unit(name, stats)
 
 
 def phase_chrm(tmp):
@@ -591,7 +684,7 @@ def phase_chrm(tmp):
     once per kernel instance (--ppe-rows, --pallas-algo striped
     --stripe-height), each run launching that instance and no other, and
     once per shipping path (PATH_RUNS, planes to fused) launching the
-    prologue entry point of its path."""
+    unique-rows entry with its path's source."""
     fixtures = os.path.join(ROOT, "fixtures")
     with open(os.path.join(fixtures, "chrM.golden.vcf"), "rb") as handle:
         golden = handle.read()
@@ -624,14 +717,17 @@ def phase_chrm(tmp):
             for k in must - {"ppe4"}:
                 launches[k] = stats["launches"][k]
             continue
-        check_run(f"chrM {name}", stats, {name}, {name},
-                  {"planes", "striped"})
+        # the default shipping of chrM's one group is planes
+        want = {name} if name.startswith("striped") else {
+            name, "ppe_front_planes"}
+        check_run(f"chrM {name}", stats, want, want, {"planes", "striped"})
         launches[name] = stats["launches"][name]
     return launches
 
 
 CONTIG_RUNS = {
-    "ppe4": ([], {"ppe4"}, {"ppe4", "prologue_nib", "prologue_packed"},
+    "ppe4": ([], {"ppe4", "ppe_front_planes"},
+             {"ppe4", "ppe_front_planes", "ppe_front_nib", "ppe_front_packed"},
              {"planes", "packednib", "packed"}),
     **PATH_RUNS,
     "striped32": (["--pallas-algo", "striped"], {"striped32"}, {"striped32"},
@@ -674,6 +770,8 @@ def phase_contig(tmp):
     first = runs["ppe4"][0]
     row = {
         "phase": "contig_2mb", "fixture_gen_s": round(gen_s, 1),
+        "default_cuda_max_memory_allocated_mb": [
+            s["cuda_max_memory_allocated_mb"] for s in runs["ppe4"]],
         "regions": first["regions"], "variants": first["variants"],
         "cell_updates": first["cell_updates"],
         "peak_rss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
@@ -705,8 +803,8 @@ def phase_contig(tmp):
     return {
         "ppe4": runs["ppe4"][0]["launches"]["ppe4"],
         "striped32": runs["striped32"][0]["launches"]["striped32"],
-        "prologue_nib": runs["nib"][0]["launches"]["prologue_nib"],
-        "prologue_packed": runs["packed"][0]["launches"]["prologue_packed"],
+        **{f"ppe_front_{path}": runs[path][0]["launches"][f"ppe_front_{path}"]
+           for path in FRONTS},
     }
 
 
@@ -723,7 +821,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     smi = phase_card()
     kernels = phase_kernels()
-    kernels.update(phase_prologue())
+    fronts = phase_front()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         chrm_launches = phase_chrm(tmp)
         contig_launches = phase_contig(tmp)
@@ -750,12 +848,13 @@ def main() -> int:
                       "c_pad": rep["c_pad"]},
             **{k: rep[k] for k in LAUNCH_KEYS if k in rep},
         })
-    for name in ("prologue_packed", "prologue_nib"):
-        rows = [v for (k, _r, _c), v in kernels.items() if k == name]
-        rep = kernels[(name,) + REPORT_SHAPE]
+    for path in FRONTS:
+        name = f"ppe_front_{path}"
+        rows = [v for (k, *_rest), v in fronts.items() if k == name]
+        rep = fronts[(name,) + REPORT_SHAPE + ("group",)]
         lines.append({
-            "name": name, "route": "cuda", "source": PROLOGUE_SOURCE,
-            "replaces": PROLOGUE_REPLACES[name],
+            "name": name, "route": "cuda", "source": PPE_SOURCE,
+            "replaces": FRONT_REPLACES[path],
             "launches": contig_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],

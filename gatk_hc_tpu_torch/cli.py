@@ -105,7 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="shipping encoding of the ppe kernel's groups: adaptive (the "
         "default: the measured winner after 32 groups), or, for tests and "
         "diagnostics, planes (i32 planes, lookups on the host) or packed "
-        "(bytes, lookups in the prologue kernel on the card); all give the "
+        "(bytes, the ppe kernel applies the lookups); all give the "
         "same result",
     )
     parser.add_argument(
@@ -316,7 +316,7 @@ def main(argv=None) -> int:
                 name: n for name, n in LAUNCHES.items() if n
             }
             # stage medians (ms): the caller's time in submit, host pack,
-            # H2D, gather / prologue, kernel, D2H (per submit) and host
+            # H2D, gather (striped only), kernel, D2H (per submit) and host
             # finalize, with their sums
             stats["device_stages_ms"] = inner.stage_medians()
             if inner.device.type == "cuda":

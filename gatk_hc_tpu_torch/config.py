@@ -167,7 +167,7 @@ class HCConfig:
     # host-prepared i32 element planes (12 B per read base, no lookups on
     # the card); "packed" ships the raw bytes (2 B per read base) or, with
     # packed_nib, nibble-dictionary bytes (1 B) and a span table, and the
-    # prologue kernel applies the lookups on the card; "adaptive" times one
+    # ppe kernel applies the lookups as it reads them; "adaptive" times one
     # group on each after the first 32 groups and keeps choosing the
     # measured winner (DispatchPathController).  Every encoding gives the
     # same bits.  The forced modes, packed_nib=False and fuse_auto=False

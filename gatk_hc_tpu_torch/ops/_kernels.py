@@ -104,15 +104,27 @@ def load(name: str) -> ctypes.CDLL:
 
 def _bind_pairhmm_ppe(lib: ctypes.CDLL) -> None:
     """The warp-per-pair kernel: no scratch argument, its DP state stays
-    in registers and shared memory; ``k`` is the read rows per lane."""
+    in registers and shared memory; ``k`` is the read rows per lane.  Two
+    entries share its instances: pair-minor inputs, and a launch unit's
+    unique rows described by a host array of segment rows."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    trans = [f, f, f, f, f, f]  # p_mm, p_gapm, p_mx, p_xx, p_my, p_yy
     fn = lib.pairhmm_ppe_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [
         vp, vp, vp, vp, vp,  # rows, hap, rlen, clen, init_y
         vp,  # out
         i, i, i, i,  # B, r_pad, c_pad, k
-        f, f, f, f, f, f,  # p_mm, p_gapm, p_mx, p_xx, p_my, p_yy
+        *trans,
+        vp,  # cudaStream_t
+    ]
+    fn = lib.pairhmm_ppe_forward_unique
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        i, vp, i,  # src, segment rows (host int64), segments
+        vp, vp,  # 768 table, out
+        i, i, i,  # r_pad, c_pad, k
+        *trans,
         vp,  # cudaStream_t
     ]
     shape = lib.pairhmm_ppe_launch_shape
@@ -139,30 +151,8 @@ def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
     shape.argtypes = [i, i, i, i, vp]  # r_pad, c_pad, stripe, k, int[3] out
 
 
-def _bind_pairhmm_prologue(lib: ctypes.CDLL) -> None:
-    """The packed and nib prologues: a group's unique rows -> the ppe
-    kernel's pair-minor inputs, at pair offset ``off`` of ``stride``."""
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    outs = [vp, vp, vp, vp, vp, i, i]  # rows, hap, rlen, clen, init_y, stride, off
-    fn = lib.pairhmm_prologue_packed
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        vp, vp, vp, vp, vp,  # u8, i32, pair reads, pair haps, 768 table
-        i, i, i, i, i,  # n, nr_pad, nh_pad, r_pad, c_pad
-        *outs, vp,  # cudaStream_t
-    ]
-    fn = lib.pairhmm_prologue_nib
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        vp, vp, vp, vp, vp,  # u8, i32, mini-table, 768 table, spans
-        i, i, i, i, i, i,  # n_spans, n, nr_pad, nh_pad, r_pad, c_pad
-        *outs, vp,  # cudaStream_t
-    ]
-
-
 _BINDERS = {
     "pairhmm_ppe": _bind_pairhmm_ppe,
     "pairhmm_striped": _bind_pairhmm_striped,
-    "pairhmm_prologue": _bind_pairhmm_prologue,
 }
 KERNELS = tuple(_BINDERS)

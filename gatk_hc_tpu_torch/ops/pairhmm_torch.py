@@ -6,14 +6,17 @@ gatk_hc_tpu/ops/pairhmm_pallas.py::_kernel_ppe / _kernel_ppe2 /
 _make_kernel_ppe_multi(NR) behind _pallas_call_ppe: one warp per
 (read, hap) pair, K read rows per lane (``rows_per_lane``, with NR as its
 floor), the wavefront across the lanes and the DP state in registers and
-shared memory.  Its inputs are pair-minor (the last axis is the pair), as
-the runner gathers them; a block's warps take consecutive pairs:
+shared memory.  This module's entry, ``ppe_forward``, takes pair-minor
+inputs (the last axis is the pair), as ``forward_batch`` and the planes
+glue build them; a block's warps take consecutive pairs:
 
 * ``rows``  (r_pad, 3, B) i32 — per read row: base mask, f32 bits of
   1 - q, f32 bits of q / 3;
 * ``hap``   (c_pad, B) i32 one-hot base masks (A=1 C=2 G=4 T=8, N=15);
 * ``rlen``, ``clen`` (B,) i32 and ``init_y`` (B,) f32 = INITIAL / haplen.
 
+The runner launches the same kernel through its unique-rows entry
+instead (ops/pairhmm_front.py), which reads a group's shipped rows itself.
 ``ppe_forward`` launches the kernel on CUDA tensors and runs the plain
 version on CPU tensors; nothing else picks between them.  The public
 entry points keep the reference package's layouts: ``pairhmm_planes`` has
@@ -37,13 +40,14 @@ MIN_NORMAL = float(np.ldexp(1.0, -126))
 
 # Kernel launches per instance ("ppe<NR>", "striped<H>"); each wrapper adds
 # one where it launches its kernel and nowhere else (chip_smoke.py and the
-# CLI's --stats read these).
+# CLI's --stats read these).  A launch of the ppe kernel's unique-rows
+# entry (ops/pairhmm_front.py) also counts under its source,
+# "ppe_front_<planes|packed|nib>", so "ppe<NR>" less those is the
+# pair-minor entry's launches.
 LAUNCHES: Dict[str, int] = {
     **{f"ppe{nr}": 0 for nr in (1, 2, 4, 8)},
     **{f"striped{h}": 0 for h in (8, 16, 32)},
-    # csrc/pairhmm_prologue.cu (ops/pairhmm_packed.py)
-    "prologue_packed": 0,
-    "prologue_nib": 0,
+    **{f"ppe_front_{path}": 0 for path in ("planes", "packed", "nib")},
 }
 
 

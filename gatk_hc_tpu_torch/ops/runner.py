@@ -13,14 +13,13 @@ separately would drown in per-launch overhead.  ``TorchPairHMMRunner``:
    picks (cfg.dispatch_mode): "planes", i32 planes with the table lookups
    applied on the host (12 B per read base), or "packed", the raw bytes
    (2 B per read base) or, with cfg.packed_nib, nibble-dictionary bytes
-   (1 B per read base) and a span table instead of the pair indices, whose
-   lookups and pair expansion the prologue kernel does on the card
-   (ops/pairhmm_packed.py, csrc/pairhmm_prologue.cu); the striped kernel
-   (cfg.pallas_algo "striped") ships raw bytes;
-4. on the stream: one H2D copy, the gather or prologue, one ppe launch per
-   chunk — or, with fusion (cfg.fuse_groups, cfg.fuse_auto), one copy and
-   one launch for k same-path groups — then one D2H copy of the submit's
-   outputs;
+   (1 B per read base) and a span table instead of the pair indices; the
+   striped kernel (cfg.pallas_algo "striped") ships raw bytes;
+4. on the stream: one H2D copy, then one ppe launch per chunk that reads
+   the group's unique rows itself, in every encoding (lookups and, for
+   nib, the pair expansion included: ops/pairhmm_front.py) — or, with
+   fusion (cfg.fuse_groups, cfg.fuse_auto), one copy and one launch for
+   k same-path groups — then one D2H copy of the submit's outputs;
 5. ``drain`` resolves the handle (re-raising any error of the worker),
    waits for the D2H copy and finalizes log10 likelihoods per job
    (sentinel or exact host float64 rescue for underflowed pairs,
@@ -60,7 +59,8 @@ ReadArray = Tuple[np.ndarray, np.ndarray]  # (bases u8, quals u8)
 
 # "submit" is the caller's time inside submit(), per submit; "d2h" is per
 # submit; the others are per launch unit (a group, or k fused groups),
-# "pack" per group
+# "pack" per group; "gather" is the striped path's table and pair gathers
+# (the ppe paths have no stage between H2D and kernel)
 STAGES = ("submit", "pack", "h2d", "gather", "kernel", "d2h", "finalize")
 
 
@@ -113,9 +113,10 @@ class DispatchPathController:
 
     Which encoding is cheaper depends on the host, the link and the card:
     planes ship 12 B per read base and need no lookups on the card; packed
-    ships 2 B (1 B with the nib encoding) and runs the prologue kernel.
+    ships 2 B (1 B with the nib encoding) and the ppe kernel applies the
+    lookups as it loads its rows, so the paths differ in pack and H2D.
     Instead of a cost model, the runner times one END-TO-END group per path
-    (pack + H2D + prologue + kernel, synchronised on its stream) and keeps
+    (pack + H2D + kernel, synchronised on its stream) and keeps
     choosing the measured winner, re-timing the staler path every
     ``recal_every`` groups so that a change of phase flips the choice
     within one calibration cycle.
@@ -403,10 +404,13 @@ class _Entry:
     total: int
     pack_ms: List[float]  # per group
     h2d: Tuple[_Stamp, _Stamp]
-    chunks: List[Tuple[_Stamp, _Stamp, _Stamp]]  # gather start, launch, end
+    chunks: List[Tuple[_Stamp, _Stamp]]  # per launch: start, end
     outs: Optional[List[torch.Tensor]]  # the launches' results (until D2H)
     keep: object  # the host buffer, alive until the batch is drained
     start: int = 0  # offset in the submit's output
+    # the striped path's gathers before each launch: start, end
+    gathers: List[Tuple[_Stamp, _Stamp]] = dataclasses.field(
+        default_factory=list)
 
 
 @dataclasses.dataclass
@@ -420,6 +424,33 @@ class _Batch:
 # fused-launch labels per path, as the reference's dispatch_profile
 _FUSE_LABEL = {"planes": "fused", "packed": "packedfused",
                "packednib": "packednibfused"}
+# the ppe kernel's source per path (ops/pairhmm_front.py)
+_FRONT = {"planes": "planes", "packed": "packed", "packednib": "nib"}
+
+
+def join_payloads(payloads: Sequence[_Payload], pinned: bool) -> _HostBuffer:
+    """One host buffer holding every payload's arrays in turn (a fused
+    launch's single H2D copy)."""
+    buf = _HostBuffer([s for p in payloads for s in p.buf.specs], pinned)
+    at = 0
+    for p in payloads:
+        for j in range(len(p.buf.specs)):
+            buf.array(at + j)[:] = p.buf.array(j)
+        at += len(p.buf.specs)
+    return buf
+
+
+def segments_of(payloads: Sequence[_Payload], views):
+    """The ppe kernel's segments of k payloads whose arrays, shipped as
+    ``join_payloads`` laid them out, are ``views``: one whole group each."""
+    from .pairhmm_front import Segment
+
+    segments, at = [], 0
+    for p in payloads:
+        n = len(p.buf.specs)
+        segments.append(Segment(tuple(views[at : at + n]), p.dims, p.total))
+        at += n
+    return segments
 
 
 class TorchPairHMMRunner:
@@ -427,8 +458,8 @@ class TorchPairHMMRunner:
     ppe kernel, or the striped one when cfg.pallas_algo is "striped".
 
     ``device`` is "cuda" (the default: the CUDA kernels; raises when no card
-    is visible) or "cpu" (the same worker, packing, prologue and finalize
-    around the kernels' plain PyTorch versions — what the tests run).
+    is visible) or "cpu" (the same worker, packing and finalize around
+    the kernels' plain PyTorch versions — what the tests run).
     ``tables`` replaces the numeric tables (ops/pairhmm_torch.py::
     make_tables layout, e.g. from convert.tables_from_reference)."""
 
@@ -474,8 +505,9 @@ class TorchPairHMMRunner:
         self._omq_bits_tab = host["omq_bits"]
         self._q3_bits_tab = host["q3_bits"]
         self.trans = tuple(np.float32(t) for t in host["trans"])
-        # the 768-entry combined table of the prologue (ppe_element_table
-        # layout: the three plane tables end to end)
+        # the 768-entry combined table the ppe kernel reads packed and nib
+        # bytes through (ppe_element_table layout: the three plane tables
+        # end to end)
         self._ppe_tab = torch.from_numpy(np.concatenate(
             [self._mask_tab, self._omq_bits_tab, self._q3_bits_tab]
         ).astype(np.int32)).to(self.device)
@@ -493,7 +525,7 @@ class TorchPairHMMRunner:
             forced=None if cfg.dispatch_mode == "adaptive" else cfg.dispatch_mode
         )
         # ONE dispatch worker (started at the first submit): packing, H2D,
-        # prologue, launches and the D2H copy of a submit run there, FIFO,
+        # launches and the D2H copy of a submit run there, FIFO,
         # so they overlap the caller's host work and the card's compute
         self._submit_pool: Optional[_DaemonWorker] = None
         self._fetch_pool: Optional[_DaemonWorker] = None
@@ -516,7 +548,7 @@ class TorchPairHMMRunner:
 
     def submit(self, jobs: Sequence[PairHMMJob]) -> _WorkerFuture:
         """Enqueue all device work for ``jobs`` WITHOUT waiting: the whole
-        body (group planning, packing, H2D, prologue, launches, D2H) runs
+        body (group planning, packing, H2D, launches, D2H) runs
         on the dispatch worker, so this returns at once.  Errors surface
         at drain().  Pass the handle(s) to drain() to collect."""
         t0 = time.perf_counter()
@@ -614,10 +646,11 @@ class TorchPairHMMRunner:
                 self.stage_ms["finalize"].append((time.perf_counter() - t0) * 1e3)
                 self.stage_ms["pack"].extend(e.pack_ms)
                 self.stage_ms["h2d"].append(e.h2d[0].ms_until(e.h2d[1]))
-                self.stage_ms["gather"].append(
-                    sum(a.ms_until(b) for a, b, _ in e.chunks))
+                if e.gathers:
+                    self.stage_ms["gather"].append(
+                        sum(a.ms_until(b) for a, b in e.gathers))
                 self.stage_ms["kernel"].append(
-                    sum(b.ms_until(c) for _, b, c in e.chunks))
+                    sum(a.ms_until(b) for a, b in e.chunks))
 
     def _fetch(self, batches: Sequence[_Batch], timeout: Optional[float]):
         """Wait for the batches' D2H copies within the wedge budget.  With
@@ -773,22 +806,17 @@ class TorchPairHMMRunner:
             launch_striped(codes, probs, probs, hap, ones, ones, init_y,
                            self.trans, self.cfg.stripe_height)
             return 1
-        from .pairhmm_packed import empty_outputs, launch_prologue
-        from .pairhmm_torch import launch_ppe
+        from .pairhmm_front import Segment, launch_ppe_unique
 
-        out = empty_outputs(r_pad, c_pad, 1, dev)
+        # one pair of one read and one hap, raw packed: every source runs
+        # the same kernel instance
         u8 = torch.zeros(2 * r_pad + c_pad, dtype=torch.uint8, device=dev)
         lens = torch.ones(3, dtype=torch.int32, device=dev)
-        zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        spans = torch.zeros((8, 4), dtype=torch.int32, device=dev)
-        spans[0, 2:] = 1
-        mini = torch.zeros(72, dtype=torch.int32, device=dev)
-        launch_prologue("packed", u8, lens, zero, zero, self._ppe_tab, 1, 1,
-                        1, r_pad, c_pad, out=out, off=0)
-        launch_prologue("nib", u8, lens, mini, self._ppe_tab, spans, 8, 1, 1,
-                        1, r_pad, c_pad, out=out, off=0)
-        launch_ppe(*out, self.trans, self.cfg.ppe_rows)
-        return 3
+        pairs = torch.zeros(2, dtype=torch.int32, device=dev)
+        launch_ppe_unique("packed", [Segment((u8, lens, pairs),
+                                             (1, 1, r_pad, c_pad), 1)],
+                          self._ppe_tab, self.trans, self.cfg.ppe_rows)
+        return 1
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
@@ -867,10 +895,6 @@ class TorchPairHMMRunner:
         r_pad, c_pad = self._pads_for_group(jobs, group)
         if self.striped:
             path, calibrate = "striped", False
-        elif c_pad % 4:
-            # the prologue reads 4 bytes at a time: a hap bucket that is
-            # not a multiple of 4 (none of the defaults) ships planes
-            path, calibrate = "planes", False
         else:
             path, calibrate = self._path_ctl.choose()
         if calibrate:
@@ -1023,8 +1047,11 @@ class TorchPairHMMRunner:
     def _pack_nib(self, u: _Unique, nib_u8: np.ndarray, minitab: np.ndarray,
                   t_pack: float) -> _Payload:
         """Nib: [nib reads | haps] u8, [rlens | hlens | init_y bits] i32,
-        the 72-entry mini-table, and the span table [read_base, hap_base,
-        nr, nh] padded to a power of two of at least 8 rows (zero rows)."""
+        the 72-entry mini-table, the span table [read_base, hap_base, nr,
+        nh] padded to a power of two of at least 8 rows (zero rows), and
+        its exclusive starts and total (pairhmm_front.nib_starts)."""
+        from .pairhmm_front import nib_starts
+
         nr_pad, nh_pad, r_pad, c_pad = u.dims
         nrr = nr_pad * r_pad
         n_spans = 8
@@ -1032,7 +1059,8 @@ class TorchPairHMMRunner:
             n_spans *= 2
         buf = _HostBuffer([(np.uint8, nrr + nh_pad * c_pad),
                            (np.int32, nr_pad + 2 * nh_pad), (np.int32, 72),
-                           (np.int32, 4 * n_spans)], self._pinned)
+                           (np.int32, 4 * n_spans), (np.int32, n_spans + 1)],
+                          self._pinned)
         u8 = buf.array(0)
         u8[:nrr] = nib_u8
         u8[nrr:] = u.hap_u8
@@ -1042,6 +1070,7 @@ class TorchPairHMMRunner:
         table[:] = 0
         for k, ((_g, _s, nr, nh), (rb, hb)) in enumerate(zip(u.spans, u.bases)):
             table[k] = (rb, hb, nr, nh)
+        buf.array(4)[:] = nib_starts(table)
         return _Payload("packednib", u.dims, buf, u.spans, u.total,
                         (time.perf_counter() - t_pack) * 1e3)
 
@@ -1073,31 +1102,12 @@ class TorchPairHMMRunner:
         minitab[40 : 40 + qual_vals.size] = self._q3_bits_tab[qual_vals]
         return nib, minitab
 
-    def _prologue(self, p: _Payload, views, out, off: int):
-        """One group's pair-minor ppe inputs into pairs off.. of ``out``
-        (allocated when None): the gathers on the planes path, the
-        prologue kernel on the packed and nib paths."""
-        from .pairhmm_packed import prologue_nib, prologue_packed, write_at
-        from .pairhmm_torch import gather_pairs
-
-        if p.path == "planes":
-            vals = gather_pairs(views[0], views[1].view(2, p.total), *p.dims)
-            return vals if out is None else write_at(out, off, vals)
-        if p.path == "packed":
-            pairs = views[2].view(2, p.total)
-            return prologue_packed(views[0], views[1], pairs[0], pairs[1],
-                                   self._ppe_tab, *p.dims, out=out, off=off)
-        return prologue_nib(views[0], views[1], views[2], self._ppe_tab,
-                            views[3].view(-1, 4), p.total, *p.dims, out=out,
-                            off=off)
-
     def _launch(self, path: str, payloads: List[_Payload]) -> _Entry:
         """k single-chunk groups of one path and one (r_pad, c_pad): one
-        host buffer and one H2D copy, each group's gather or prologue into
-        its own pair offset of one pair-minor buffer, ONE ppe launch over
-        the sum of their pairs.  k = 1 is the unfused launch."""
-        from .pairhmm_packed import empty_outputs
-        from .pairhmm_torch import ppe_forward
+        host buffer and one H2D copy, then ONE ppe launch that reads each
+        group's unique rows, the groups' pairs end to end.  k = 1 is the
+        unfused launch."""
+        from .pairhmm_front import ppe_forward_unique
 
         k = len(payloads)
         label = path if k == 1 else _FUSE_LABEL[path] + str(k)
@@ -1107,64 +1117,41 @@ class TorchPairHMMRunner:
             buf, pack_ms = payloads[0].buf, [payloads[0].pack_ms]
         else:
             t0 = time.perf_counter()
-            buf = _HostBuffer([s for p in payloads for s in p.buf.specs],
-                              self._pinned)
-            at = 0
-            for p in payloads:
-                for j in range(len(p.buf.specs)):
-                    buf.array(at + j)[:] = p.buf.array(j)
-                at += len(p.buf.specs)
+            buf = join_payloads(payloads, self._pinned)
             share = (time.perf_counter() - t0) * 1e3 / k
             pack_ms = [p.pack_ms + share for p in payloads]
         h0 = _Stamp(stream)
         views = buf.ship(self.device)
         h1 = _Stamp(stream)
-        total = sum(p.total for p in payloads)
-        r_pad, c_pad = payloads[0].dims[2:]
-        s0 = _Stamp(stream)
-        out = None if k == 1 else empty_outputs(r_pad, c_pad, total,
-                                                self.device)
-        spans: List[Tuple[int, int, int, int]] = []
-        off = at = 0
+        spans, off = [], 0
         for p in payloads:
-            n = len(p.buf.specs)
-            out = self._prologue(p, views[at : at + n], out, off)
             spans.extend((g, off + s, nr, nh) for g, s, nr, nh in p.spans)
             off += p.total
-            at += n
-        s1 = _Stamp(stream)
-        res = ppe_forward(*out, self.trans, self.cfg.ppe_rows)
-        return _Entry(spans, total, pack_ms, (h0, h1),
-                      [(s0, s1, _Stamp(stream))], [res], buf)
+        res = ppe_forward_unique(_FRONT[path], segments_of(payloads, views),
+                                 self._ppe_tab, self.trans, self.cfg.ppe_rows)
+        return _Entry(spans, off, pack_ms, (h0, h1), [(h1, _Stamp(stream))],
+                      [res], buf)
 
     def _launch_chunks(self, p: _Payload) -> _Entry:
         """A group of several chunks (one oversized job): one H2D copy,
-        then per chunk the gather ("planes") or the packed prologue over
-        the chunk's pairs ("packed-split") and a ppe launch."""
-        from .pairhmm_packed import prologue_packed
-        from .pairhmm_torch import gather_pairs, ppe_forward
+        then per chunk one ppe launch over the chunk's pairs, read from
+        the group's unique rows ("planes", or raw packed as
+        "packed-split")."""
+        from .pairhmm_front import Segment, ppe_forward_unique
 
         stream = self._stream
         h0 = _Stamp(stream)
-        views = p.buf.ship(self.device)
+        views = tuple(p.buf.ship(self.device))
         h1 = _Stamp(stream)
-        planes = p.path == "planes"
-        label = "planes" if planes else "packed-split"
-        pairs = views[1 if planes else 2].view(2, p.total)
+        label = "planes" if p.path == "planes" else "packed-split"
         outs, chunks = [], []
         for off in range(0, p.total, self.pair_budget):
             size = min(self.pair_budget, p.total - off)
-            s0 = _Stamp(stream)
-            if planes:
-                args = gather_pairs(views[0], pairs[:, off : off + size],
-                                    *p.dims)
-            else:
-                args = prologue_packed(
-                    views[0], views[1], pairs[0, off : off + size],
-                    pairs[1, off : off + size], self._ppe_tab, *p.dims)
-            s1 = _Stamp(stream)
-            outs.append(ppe_forward(*args, self.trans, self.cfg.ppe_rows))
-            chunks.append((s0, s1, _Stamp(stream)))
+            k0 = _Stamp(stream)
+            outs.append(ppe_forward_unique(
+                _FRONT[p.path], [Segment(views, p.dims, p.total, off, size)],
+                self._ppe_tab, self.trans, self.cfg.ppe_rows))
+            chunks.append((k0, _Stamp(stream)))
             self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
         return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
                       p.buf)
@@ -1199,7 +1186,7 @@ class TorchPairHMMRunner:
         h1 = _Stamp(stream)
         pairs = views[2].view(2, p.total)
         tables = None
-        outs, chunks = [], []
+        outs, chunks, gathers = [], [], []
         for off in range(0, p.total, self.pair_budget):
             size = min(self.pair_budget, p.total - off)
             s0 = _Stamp(stream)
@@ -1211,12 +1198,13 @@ class TorchPairHMMRunner:
             outs.append(
                 striped_forward(*args, self.trans, self.cfg.stripe_height)
             )
-            chunks.append((s0, s1, _Stamp(stream)))
+            gathers.append((s0, s1))
+            chunks.append((s1, _Stamp(stream)))
             self.dispatch_counts["striped"] = (
                 self.dispatch_counts.get("striped", 0) + 1
             )
         return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
-                      p.buf)
+                      p.buf, gathers=gathers)
 
     def _build_planes(self, read_u8, qual_u8, hap_u8, read_lens, hap_lens,
                       hap_init_y, nr_pad, nh_pad, r_pad, c_pad, out=None):

@@ -13,9 +13,11 @@ forward in even rounds, backward in odd ones (parent, change, change,
 parent) — so that a drift of the card or the host falls on both.  Every
 VCF is compared with the first tree's native C++ engine's.  One JSON line
 per run (wall, launches, dispatch_profile, init_profile, the runner's
-stage sums and medians, device busy = (H2D + gather/prologue + kernel +
-D2H) / wall), then one summary line per (tree, mode); the card's
-name and power limit (nvidia-smi) lead.  Needs a CUDA card.
+stage sums and medians, device busy = (H2D + gather + kernel + D2H) /
+wall, and the device-memory peak; a gather stage exists on the striped
+path, and on the ppe paths only of trees whose ppe kernel does not read
+the unique rows itself), then one summary line per (tree, mode); the
+card's name and power limit (nvidia-smi) lead.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -81,6 +83,8 @@ def record(tree_label, mode, stats, vcf_bytes, want):
         "groups": stages.get("groups"),
         "device_busy_frac": busy_ms / (1e3 * stats["wall_s"]),
         "host_stages_s": stats.get("stages"),
+        "cuda_max_memory_allocated_mb": stats.get(
+            "cuda_max_memory_allocated_mb"),
     }
 
 
@@ -165,6 +169,8 @@ def main(argv=None) -> int:
                for s in ("submit", "pack", "h2d", "gather", "kernel", "d2h",
                          "finalize")},
             "pack_median_ms": [r["stage_median_ms"].get("pack") for r in rows],
+            "cuda_max_memory_allocated_mb": [
+                r["cuda_max_memory_allocated_mb"] for r in rows],
             "dispatch_profile": rows[0]["dispatch_profile"],
         })
     if sink:

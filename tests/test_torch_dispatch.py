@@ -1,6 +1,7 @@
 """The port's dispatch layer against the reference package: the packed and
-nib glue in front of the ppe kernel (ops/pairhmm_packed.py, the prologue
-kernel's plain versions), the nib encoding, the path controller, and every
+nib glue in front of the ppe kernel (ops/pairhmm_packed.py, the plain half
+of the kernel's unique-rows entry, ops/pairhmm_front.py), the nib
+encoding, the path controller, and every
 shipping path of TorchPairHMMRunner (planes, packed, packed-split, nib,
 alphabet overflow, fused k >= 2, fuse_auto, adaptive) — results bit-equal
 to the reference's NativePairHMMRunner, dispatch_profile labels equal to
@@ -19,6 +20,7 @@ from gatk_hc_tpu.ops import pairhmm_pallas as ref_pallas
 from gatk_hc_tpu.ops import runner as ref_runner
 from gatk_hc_tpu.utils.quality import BASE_TABLE, INITIAL_CONSTANT_F32, PH2PR_F32
 from gatk_hc_tpu_torch import convert
+from gatk_hc_tpu_torch.ops import pairhmm_front as pf
 from gatk_hc_tpu_torch.ops import pairhmm_packed as pk
 from gatk_hc_tpu_torch.ops import runner as port_runner
 from gatk_hc_tpu_torch.ops.runner import PairHMMJob, TorchPairHMMRunner
@@ -146,8 +148,8 @@ def test_nib_encode_seq_overflow_matches_reference():
 
 @pytest.mark.parametrize("off", [0, 5])
 def test_prologue_packed_plain_matches_reference(off):
-    """The packed prologue = prepare_tables_ppe + the gathers, written at
-    pair offset ``off`` of a wider buffer (the rest untouched)."""
+    """The packed glue = prepare_tables_ppe + the gathers, for pairs off ..
+    off + B - 1 of a group's wider pair arrays (a chunk's segment)."""
     nprng = np.random.default_rng(20 + off)
     nr, nh, r_pad, c_pad, B = 8, 4, 16, 32, 37
     read, qual, hap, i32 = group_bytes(nprng, nr, nh, r_pad, c_pad)
@@ -159,20 +161,20 @@ def test_prologue_packed_plain_matches_reference(off):
         nr_pad=nr, nh_pad=nh, r_pad=r_pad, c_pad=c_pad,
     )
     want = ref_gathers(*tables, pr, ph)
-    out = pk.empty_outputs(r_pad, c_pad, B + off + 3, "cpu")
-    for o in out:
-        o.view(torch.int32).fill_(-7)
-    pk.prologue_packed(t(u8), t(i32), t(pr), t(ph), t(PPE_TABLE), nr, nh,
-                       r_pad, c_pad, out=out, off=off)
-    assert_outputs_equal([o[..., off : off + B] for o in out], want)
-    for o in out:  # only its own pairs are written
-        rest = torch.cat([o[..., :off].reshape(-1), o[..., off + B :].reshape(-1)])
-        assert bool((rest.view(torch.int32) == -7).all())
+    assert_outputs_equal(pk.prologue_packed_plain(
+        t(u8), t(i32), t(pr), t(ph), t(PPE_TABLE), nr, nh, r_pad, c_pad),
+        want)
+    total = B + off + 3  # pairs around the chunk point elsewhere
+    pairs = np.full((2, total), -7, np.int32)
+    pairs[:, off : off + B] = pr, ph
+    seg = pf.Segment((t(u8), t(i32), t(pairs.ravel())), (nr, nh, r_pad, c_pad),
+                     total, off, B)
+    assert_outputs_equal(pf.segment_inputs("packed", seg, t(PPE_TABLE)), want)
 
 
 @pytest.mark.parametrize("case", ["padded", "zero_rows", "short"])
 def test_prologue_nib_plain_matches_reference(case):
-    """The nib prologue = _unpack_nib_ppe + _expand_pairs_from_spans + the
+    """The nib glue = _unpack_nib_ppe + _expand_pairs_from_spans + the
     gathers, from bytes the reference runner's _nib_encode made."""
     rows, n_pairs = SPAN_CASES[case]
     nprng = np.random.default_rng(len(case))
@@ -188,8 +190,8 @@ def test_prologue_nib_plain_matches_reference(case):
     )
     pr, ph = ref_pallas._expand_pairs_from_spans(jnp.asarray(spans), n_pairs)
     want = ref_gathers(*tables, pr, ph)
-    got = pk.prologue_nib(t(u8), t(i32), t(minitab), t(PPE_TABLE), t(spans),
-                          n_pairs, nr, nh, r_pad, c_pad)
+    got = pk.prologue_nib_plain(t(u8), t(i32), t(minitab), t(PPE_TABLE),
+                                t(spans), n_pairs, nr, nh, r_pad, c_pad)
     assert_outputs_equal(got, want)
     # and the nib planes are the raw encodings' planes, padding included
     mask, omq, q3 = ref_pallas.plane_tables(BASE_TABLE, PH2PR_F32)
@@ -201,17 +203,25 @@ def test_prologue_nib_plain_matches_reference(case):
 
 
 def test_prologue_rejects_bad_inputs():
+    """The packed entry of ppe_forward_unique: a short byte buffer, pairs
+    past the group's and int64 pair indices."""
     u8 = torch.zeros(2 * 8 * 16 + 4 * 32, dtype=torch.uint8)
     i32 = torch.ones(16, dtype=torch.int32)
     tab = t(PPE_TABLE)
-    pairs = torch.zeros(4, dtype=torch.int32)
+    pairs = torch.zeros(8, dtype=torch.int32)
+    dims = (8, 4, 16, 32)
+    trans = (0.5,) * 6
+
+    def run(*views, start=0, n=None):
+        seg = pf.Segment(views, dims, 4, start, n)
+        return pf.ppe_forward_unique("packed", [seg], tab, trans)
+
     with pytest.raises(ValueError, match="shorter"):
-        pk.prologue_packed(u8[:10], i32, pairs, pairs, tab, 8, 4, 16, 32)
+        run(u8[:10], i32, pairs)
     with pytest.raises(ValueError, match="exceed"):
-        pk.prologue_packed(u8, i32, pairs, pairs, tab, 8, 4, 16, 32,
-                           out=pk.empty_outputs(16, 32, 4, "cpu"), off=1)
+        run(u8, i32, pairs, start=1, n=4)
     with pytest.raises(TypeError):
-        pk.prologue_packed(u8, i32, pairs.long(), pairs, tab, 8, 4, 16, 32)
+        run(u8, i32, pairs.long())
 
 
 # ---------------------------------------------------------------------------

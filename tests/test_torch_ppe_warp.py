@@ -186,15 +186,14 @@ def _c_params(source, name):
 
 def test_ppe_binding_matches_c_signature():
     """The binding passes what the C functions take: no scratch pointers,
-    K (not NR) and a launch-shape query."""
+    K (not NR), the unique-rows entry and a launch-shape query."""
     with open(f"{_kernels.CSRC}/pairhmm_ppe.cu") as handle:
         source = handle.read()
-    lib = types.SimpleNamespace(
-        pairhmm_ppe_forward=types.SimpleNamespace(),
-        pairhmm_ppe_launch_shape=types.SimpleNamespace(),
-    )
+    names = ("pairhmm_ppe_forward", "pairhmm_ppe_forward_unique",
+             "pairhmm_ppe_launch_shape")
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in names})
     _kernels._BINDERS["pairhmm_ppe"](lib)
-    for name in ("pairhmm_ppe_forward", "pairhmm_ppe_launch_shape"):
+    for name in names:
         assert len(getattr(lib, name).argtypes) == len(_c_params(source, name))
     params = _c_params(source, "pairhmm_ppe_forward")
     assert params[:6] == ["const void* rows", "const void* hap", "const void* rlen",
