@@ -10,13 +10,19 @@ at one shape with reads longer than 256 rows, then
 holds the ppe kernel's unique-rows entry (one launch that reads a group's
 shipped unique rows itself) against its plain version for each shipping
 encoding (planes, packed, nib) at every bucket shape and at that long
-shape, fused over three groups and on a chunk of one, then drives the
+shape, fused over three groups and on a chunk of one, holds both
+instances of the genotype kernel (f64, f32) against their plain version
+and the f64 one against the host genotyper on seeded tiles of the
+genotyper's bucket grid (and, after the runs below, on every tile the
+main path gave the kernel), then drives the
 port's main path — the CLI, SAM + FASTA -> VCF with the CUDA PairHMM
 behind the runner's dispatch worker, through the ppe kernel (the default,
 adaptive shipping), each shipping path (--dispatch-mode planes / packed,
-with and without --no-packed-nib, fused with --no-fuse-auto) and the
-striped kernel (--pallas-algo striped) — on the chrM fixture
-(byte-identical to the golden VCF) and on a 2 Mb contig at 30x
+with and without --no-packed-nib, fused with --no-fuse-auto), the
+striped kernel (--pallas-algo striped) and the genotype kernel
+(--genotyper cuda) — on the chrM fixture (byte-identical to the golden
+VCF; also through --pairhmm native --genotyper cuda, the f32 genotyper
+path, --pairhmm diag and --pairhmm auto) and on a 2 Mb contig at 30x
 (byte-identical to the port's native C++ engine).
 Every phase prints one JSON line and raises on failure.  The last lines are
 the card's name and power limit (nvidia-smi), one JSON object per kernel
@@ -42,10 +48,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
-# tensor cores (an FMA counted as two operations) and HBM bandwidth, used
-# for each kernel's least time.
+# Published peaks of one H100 SXM (NVIDIA data sheet): f32 and f64 outside
+# the tensor cores (an FMA counted as two operations) and HBM bandwidth,
+# used for each kernel's least time.
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 PEAK_HBM_BYTES = 3.35e12
 PPE_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_ppe.cu"
 PPE_REPLACES = {
@@ -64,6 +71,13 @@ FRONT_REPLACES = {
     "packed": "gatk_hc_tpu/ops/pairhmm_pallas.py:1034",
     "nib": "gatk_hc_tpu/ops/pairhmm_pallas.py:1254",
 }
+GENOTYPER_SOURCE = "gatk_hc_tpu_torch/csrc/genotyper.cu"
+GENOTYPER_REPLACES = "gatk_hc_tpu/ops/genotyper_jax.py:53"
+# seeded genotype kernel tiles (S, R, H) from the genotyper's bucket grid
+# (models/genotyper.py _S/_R/_H_BUCKETS); the kernels line reports the
+# tiles the main path's runs give the kernel (phase_genotyper_main)
+GENOTYPE_TILES = ((1024, 128, 16), (256, 512, 32), (64, 2048, 128),
+                  (2, 64, 16))
 STRIPED_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_striped.cu"
 STRIPED_REPLACES = "gatk_hc_tpu/ops/pairhmm_pallas.py:59"
 STRIPES = (8, 16, 32)
@@ -130,6 +144,9 @@ def instance_name(mangled: str) -> str:
     m = re.search(r"ppe_forward_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"ppe_k{m.group(1)}" + ("_carry" if m.group(2) == "1" else "")
+    m = re.search(r"genotype_kernelI([df])E", mangled)
+    if m:
+        return "genotype_f64" if m.group(1) == "d" else "genotype_f32"
     return mangled
 
 
@@ -140,6 +157,8 @@ def expected_instances(name: str):
     rows-per-lane rule carries only there)."""
     if name == "pairhmm_ppe":
         return {f"ppe_k{k}{c}" for k in range(1, 9) for c in ("", "_carry")}
+    if name == "genotyper":
+        return {"genotype_f64", "genotype_f32"}
     from gatk_hc_tpu_torch.ops.pairhmm_striped import MAX_ROWS_PER_LANE
 
     return {f"striped{h}_k{k}{c}" for h, kmax in MAX_ROWS_PER_LANE.items()
@@ -150,12 +169,13 @@ def expected_instances(name: str):
 def compiler_report(_kernels, name):
     """Registers, stack, static shared and local memory per kernel
     instantiation (shared memory is dynamic: the kernel phase reports it
-    per shape), and the f32 multiply / add / fused multiply-add
+    per shape), and the f32 and f64 multiply / add / fused multiply-add
     instructions in its machine code, read with cuobjdump from the library
-    just built.  Raises on any FFMA (the exactness rules forbid mul+add
-    contraction), on local memory or stack, and on a missing instance."""
+    just built.  Raises on any FFMA or DFMA (the exactness rules forbid
+    mul+add contraction), on local memory or stack, and on a missing
+    instance."""
     out = instance_report(_kernels, _kernels.library_path(name))
-    if any(info.get("FFMA") for info in out.values()):
+    if any(info.get("FFMA") or info.get("DFMA") for info in out.values()):
         raise AssertionError(f"{name}: fused multiply-add in SASS: {out}")
     if any(info.get("local") or info.get("stack") for info in out.values()):
         raise AssertionError(f"{name}: spills to local memory / stack: {out}")
@@ -166,8 +186,9 @@ def compiler_report(_kernels, name):
 
 
 def instance_report(_kernels, lib):
-    """{instance: registers, stack, shared, local, FMUL/FADD/FFMA count}
-    of the kernel library ``lib``, read with cuobjdump."""
+    """{instance: registers, stack, shared, local, FMUL/FADD/FFMA and
+    DMUL/DADD/DFMA count} of the kernel library ``lib``, read with
+    cuobjdump."""
     import re
 
     tool = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
@@ -192,7 +213,7 @@ def instance_report(_kernels, lib):
         if m:
             fn = out.setdefault(instance_name(m.group(1)), {})
             continue
-        m = re.search(r"\b(FMUL|FADD|FFMA)\b", line)
+        m = re.search(r"\b(FMUL|FADD|FFMA|DMUL|DADD|DFMA)\b", line)
         if m and fn is not None:
             fn[m.group(1)] = fn.get(m.group(1), 0) + 1
     return out
@@ -607,6 +628,268 @@ def phase_front():
     return results
 
 
+def genotype_tile(rng, S, R, H):
+    """One seeded tile (S, R, H) as the genotyper pads its sites: per site
+    nr reads in (R / 2, R] (the R bucket of nr; 1..64 at the first), nh
+    haps in (H / 2, H] (at least 2), allele counts 2-8 with every allele
+    on a hap (1 site in 20 leaves its last allele without one), reads kept
+    with probability 0.8, and normalized likelihoods on a 0.25 grid (the
+    best hap of a read in [-40, -1], the others at most 4.5 below it), so
+    that allele maxima and totals tie; 1 site in 16 has every likelihood
+    -1.0 (all genotypes tied), and 1 in 8 has 1 in 32 of its likelihoods
+    at +-(1e-45 .. 1.2e-38), subnormal in f32 (the f32 instance reads them
+    as zero, -ftz=true).  -> (lik f64, h2a, keep, hap_valid, ac)."""
+    import numpy as np
+
+    tiny = float(np.finfo(np.float32).tiny)
+    lik = np.zeros((S, R, H))
+    h2a = np.zeros((S, H), np.int32)
+    keep = np.zeros((S, R), bool)
+    hv = np.zeros((S, H), bool)
+    ac = np.zeros(S, np.int32)
+    for s in range(S):
+        nr = int(rng.integers(R // 2 + 1 if R > 64 else 1, R + 1))
+        nh = int(rng.integers(max(2, H // 2 + 1), H + 1))
+        a = min(int(rng.integers(2, 9)), nh)
+        mapper = np.concatenate([rng.permutation(a),
+                                 rng.integers(0, a, nh - a)])
+        if rng.random() < 0.05:
+            mapper[mapper == a - 1] = 0
+        best = -rng.uniform(1.0, 40.0, nr)
+        vals = best[:, None] - rng.uniform(0.0, 4.5, (nr, nh))
+        vals[np.arange(nr), rng.integers(0, nh, nr)] = best
+        if rng.random() < 1 / 16:
+            vals[:] = -1.0
+        vals = np.round(vals * 4.0) / 4.0
+        if rng.random() < 1 / 8:
+            sub = rng.random((nr, nh)) < 1 / 32
+            vals[sub] = (rng.choice((-1.0, 1.0), (nr, nh))
+                         * rng.uniform(1e-45, tiny, (nr, nh)))[sub]
+        lik[s, :nr, :nh] = vals
+        h2a[s, :nh] = rng.permutation(mapper)
+        keep[s, :nr] = rng.random(nr) < 0.8
+        hv[s, :nh] = True
+        ac[s] = a
+    return lik, h2a, keep, hv, ac
+
+
+def genotype_table_entries(lik, h2a, keep, hv, ac):
+    """How many distinct Jacobian table entries the tile's data indexes:
+    per site, the kept reads' allele maxima over valid haps, and for each
+    het genotype of the site's alleles the index floor(diff * 1e4 + 0.5)
+    where diff < 8, in the likelihoods' type (LOWEST = -DBL_MAX in f64,
+    -inf in f32, for an allele without a hap)."""
+    import numpy as np
+
+    t = lik.dtype.type
+    low = t(-np.inf) if lik.dtype == np.float32 else t(
+        -np.finfo(np.float64).max)
+    seen = set()
+    for s in range(len(ac)):
+        a = int(ac[s])
+        rows = lik[s][keep[s]]
+        al = np.full((rows.shape[0], a), low, lik.dtype)
+        for k in range(a):
+            cols = hv[s] & (h2a[s] == k)
+            if cols.any():
+                al[:, k] = rows[:, cols].max(axis=1)
+        i1, i2 = np.triu_indices(a, 1)
+        l1, l2 = al[:, i1], al[:, i2]
+        with np.errstate(invalid="ignore", over="ignore"):
+            diff = np.maximum(l1, l2) - np.minimum(l1, l2)
+            ind = np.floor(diff[diff < t(8.0)] * t(1e4) + t(0.5))
+        seen.update(np.unique(ind).astype(np.int64).tolist())
+    return len(seen)
+
+
+def genotype_bound(lik, h2a, keep, hv, ac):
+    """The least time of one genotype launch on this tile (numpy arrays,
+    ``lik`` in the instance's type), in ms, and what sets it; both terms
+    count what this tile's data needs.  Bytes, each read or written once:
+    the likelihoods of kept reads x valid haps, the valid haps' allele
+    map, the two masks, the allele counts, the Jacobian table entries the
+    tile indexes (genotype_table_entries), and the outputs (36
+    likelihoods, best and GQ a site).  Operations: one max per (kept read,
+    valid hap); per (kept read, valid genotype) 2 for a hom slot (add, sum)
+    and 7 for a het one (max, min, sub, mul, add, table add, sum), 4 more
+    per sum on the compensated f32 path; 2 per valid genotype at the end —
+    over the f64 (or f32) peak."""
+    import numpy as np
+
+    S = lik.shape[0]
+    itemsize = lik.dtype.itemsize
+    kept = keep.sum(axis=1).astype(np.int64)
+    haps = hv.sum(axis=1).astype(np.int64)
+    a = ac.astype(np.int64)
+    het = a * (a - 1) // 2
+    per_sum = 4 if itemsize == 4 else 0
+    ops = int(kept @ haps) + int(kept @ (a * (2 + per_sum)
+                                          + het * (7 + per_sum)))
+    ops += int(2 * (a + het).sum())
+    nbytes = (int(kept @ haps) * itemsize + int(haps.sum()) * 4
+              + keep.size + hv.size + ac.size * 4
+              + genotype_table_entries(lik, h2a, keep, hv, ac) * itemsize
+              + S * 36 * itemsize + 2 * S * 4)
+    peak = PEAK_F64_FLOPS if itemsize == 8 else PEAK_F32_FLOPS
+    bound_s = {"bytes": nbytes / PEAK_HBM_BYTES, "operations": ops / peak}
+    by = max(bound_s, key=bound_s.get)
+    return 1e3 * bound_s[by], by
+
+
+def host_genotypes(lik, h2a, keep, hv, ac):
+    """The host genotyper on the same tile: (per site, the 36-slot indices
+    of its genotypes, their likelihoods from the per-site reductions, the
+    best slot and GQ from the batched f64 reduction)."""
+    import numpy as np
+
+    from gatk_hc_tpu_torch.models.genotyper import (
+        _calculate_genotype_likelihoods, _genotype_sites_numpy,
+        _marginalize, _triu_pairs,
+    )
+    from gatk_hc_tpu_torch.ops.genotyper_cuda import genotype_pair_tables
+
+    a1, a2 = genotype_pair_tables()
+    slot_of = {(int(x), int(y)): g for g, (x, y) in enumerate(zip(a1, a2))}
+    out = [None] * len(ac)
+    for count in np.unique(ac):
+        idx = np.nonzero(ac == count)[0]
+        best, gq = _genotype_sites_numpy(lik[idx], h2a[idx], keep[idx],
+                                         hv[idx], int(count), 99)
+        h1, h2 = _triu_pairs(int(count))
+        slots = [slot_of[(int(x), int(y))] for x, y in zip(h1, h2)]
+        for k, s in enumerate(idx):
+            valid = np.nonzero(hv[s])[0]
+            allele_lik = _marginalize([int(h2a[s, h]) for h in valid],
+                                      int(count), keep[s], lik[s][:, valid])
+            gl = np.asarray(_calculate_genotype_likelihoods(allele_lik,
+                                                            int(count)))
+            out[s] = (slots, gl, slots[int(best[k])], int(gq[k]))
+    return out
+
+
+def genotype_row(tiles, args):
+    """One genotype kernel instance (``args[0]``'s dtype picks it) on one
+    tile of card tensors (lik, hap_to_allele, read_keep, hap_valid,
+    allele_count): bit-equal to the plain version in likelihoods, best and
+    GQ at every site, the f64 one also to the host genotyper at every site
+    with a hap (every valid slot's likelihood, the best genotype and GQ);
+    ms per launch, plain ms, bound.
+    ``tiles`` says where the tile comes from.  -> its row; raises on a
+    mismatch."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.ops import genotyper_cuda as gc
+
+    S, R, H = args[0].shape
+    f64 = args[0].dtype == torch.float64
+    name = "genotype_f64" if f64 else "genotype_f32"
+    got = gc.genotype_sites_cuda(*args)
+    jac = gc.jacobian_table(args[0].dtype, "cuda")
+    want, plain_ms = timed_once(lambda: gc.genotype_sites_plain(*args, jac))
+    torch.cuda.synchronize()
+    ibits = torch.int64 if f64 else torch.int32
+    same = (torch.equal(got[0].view(ibits), want[0].view(ibits))
+            and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2]))
+    gl, best, gq = (t.cpu().numpy() for t in got)
+    arrays = [t.cpu().numpy() for t in args]
+    host_same = None
+    if f64:  # the tile's sites (padding sites have no hap)
+        real = np.nonzero(arrays[3].any(axis=1))[0]
+        host_same = all(
+            np.array_equal(gl[s, slots].view(np.int64),
+                           want_gl.view(np.int64))
+            and best[s] == b and gq[s] == q
+            for s, (slots, want_gl, b, q) in zip(
+                real, host_genotypes(*(x[real] for x in arrays))))
+    finite = np.isfinite(gl) & np.isfinite(want[0].cpu().numpy())
+    bound_ms, bound_by = genotype_bound(*arrays)
+    row = {
+        "phase": "genotyper", "tiles": tiles, "name": name,
+        "S": S, "R": R, "H": H,
+        "bit_equal_plain": same, "equal_host": host_same,
+        "max_abs_err": float(np.abs(
+            gl[finite] - want[0].cpu().numpy()[finite]).max(initial=0.0)),
+        "plain_ms": round(plain_ms, 3),
+        "bound_ms": float(f"{bound_ms:.4g}"), "bound_by": bound_by,
+        "library_ms": None,
+    }
+    if not same or host_same is False:
+        emit(row)
+        raise AssertionError(
+            f"{name} at {(S, R, H)} ({tiles}): kernel differs from plain "
+            f"({same}) or host ({host_same})")
+    row["ms"] = round(time_ms(lambda: gc.genotype_sites_cuda(*args), 10), 4)
+    row["pct_of_bound"] = float(f"{100 * row['bound_ms'] / row['ms']:.3g}")
+    emit(row)
+    return row
+
+
+def phase_genotyper():
+    """Both instances of the genotype kernel on seeded tiles of the
+    genotyper's bucket grid (GENOTYPE_TILES; genotype_row's checks and
+    times).  -> {(name, S, R, H): row}"""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(20261018)
+    results = {}
+    for S, R, H in GENOTYPE_TILES:
+        tile = genotype_tile(rng, S, R, H)
+        for dtype in (np.float64, np.float32):
+            args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                    for x in (tile[0].astype(dtype),) + tile[1:]]
+            row = genotype_row("seeded", args)
+            results[(row["name"], S, R, H)] = row
+    return results
+
+
+@contextlib.contextmanager
+def recording_genotype_tiles():
+    """Inside, every genotype kernel launch is tallied by its tile shape
+    (S, R, H), and the inputs of the first launch at each shape are kept
+    (cloned on the launching stream, after its copies); the launch and its
+    count stay the wrapper's own.  Yields {"shapes": {shape: launches},
+    "inputs": {shape: [lik, hap_to_allele, read_keep, hap_valid,
+    allele_count]}}."""
+    from gatk_hc_tpu_torch.ops import genotyper_cuda as gc
+
+    launch = gc.genotype_sites_cuda
+    record = {"shapes": {}, "inputs": {}}
+
+    def recording(*args, **kwargs):
+        shape = tuple(args[0].shape)
+        record["shapes"][shape] = record["shapes"].get(shape, 0) + 1
+        if shape not in record["inputs"]:
+            record["inputs"][shape] = [t.clone() for t in args[:5]]
+        return launch(*args, **kwargs)
+
+    gc.genotype_sites_cuda = recording
+    try:
+        yield record
+    finally:
+        gc.genotype_sites_cuda = launch
+
+
+def phase_genotyper_main(run, record):
+    """The genotype kernel at the main path's own tiles: every shape of
+    ``run``'s launches, on the inputs that run first gave the kernel at
+    that shape (genotype_row's checks and times).  -> the rows, the most
+    common shape's first (of two as common, the larger tile)."""
+    import torch
+
+    torch.cuda.synchronize()
+    shapes = record["shapes"]
+    order = sorted(shapes, key=lambda k: (shapes[k], k[0] * k[1] * k[2]),
+                   reverse=True)
+    emit({"phase": "genotyper_main_path", "run": run,
+          "launches_by_shape": {"x".join(map(str, k)): n
+                                for k, n in sorted(shapes.items())},
+          "most_common": order[0]})
+    return [genotype_row(run, record["inputs"][shape]) for shape in order]
+
+
 def run_cli(argv):
     """One in-process CLI run (the entry point a user calls) -> its
     --stats JSON, with the PairHMM kernels' launch counts of this run."""
@@ -725,6 +1008,92 @@ def phase_chrm(tmp):
     return launches
 
 
+def phase_chrm_engines(tmp):
+    """chrM through the engines beside the default kernel path, each
+    byte-identical to the golden VCF: --genotyper cuda (the genotype
+    kernel's f64 instance; the PairHMM launches of the default and no
+    other), --pairhmm native --genotyper cuda (the genotype kernel alone),
+    the f32 genotyper path through call_batched (genotype_regions_device
+    with use_f64=False: the f32 instance, its stability guard and the
+    host recompute of the sites it flags), --pairhmm diag (no kernel at
+    all: the anti-diagonal forward in PyTorch ops on the card) and
+    --pairhmm auto (chrM resolves to native).  -> (the f32 instance's
+    launches, the f32 run's genotype tiles: recording_genotype_tiles)."""
+    import functools
+
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.models import caller
+    from gatk_hc_tpu_torch.models import genotyper as gt
+    from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
+    from gatk_hc_tpu_torch.utils.logging import RunCounters
+
+    fixtures = os.path.join(ROOT, "fixtures")
+    sam = os.path.join(fixtures, "chrM.sam")
+    fasta = os.path.join(fixtures, "chrM.fa")
+    with open(os.path.join(fixtures, "chrM.golden.vcf"), "rb") as handle:
+        golden = handle.read()
+    default_ppe = {"ppe4", "ppe_front_planes"}
+    runs = {  # name -> (flags, the launches the run must show, exactly)
+        "genotyper_cuda": (["--genotyper", "cuda"],
+                           default_ppe | {"genotype_f64"}),
+        "native_genotyper_cuda": (
+            ["--pairhmm", "native", "--genotyper", "cuda"], {"genotype_f64"}),
+        "diag": (["--pairhmm", "diag"], set()),
+        "auto": (["--pairhmm", "auto"], set()),
+    }
+    for name, (flags, want) in runs.items():
+        out = os.path.join(tmp, f"chrM.{name}.vcf")
+        stats = run_cli(["-I", sam, "-R", fasta, "-O", out] + flags)
+        with open(out, "rb") as handle:
+            identical = handle.read() == golden
+        launched = {k for k, n in stats["launches"].items() if n}
+        emit({"phase": "chrM", "kernel": name, "flags": flags,
+              "golden_identical": identical, "engine": stats["engine"],
+              "engine_requested": stats.get("engine_requested"),
+              "genotyper": stats["genotyper"], "variants": stats["variants"],
+              "launches": stats["launches"], "wall_s": stats["wall_s"],
+              "stages": stats["stages"]})
+        if not identical:
+            raise AssertionError(f"chrM with {name}: not the golden VCF")
+        if launched != want:
+            raise AssertionError(f"chrM {name}: launched {launched}, "
+                                 f"expected {want}")
+        if name == "auto" and (stats["engine"], stats.get(
+                "engine_requested")) != ("native", "auto"):
+            raise AssertionError(f"chrM auto resolved to {stats['engine']}")
+    # the f32 path: call_batched reads genotype_regions_device from its
+    # module at each chunk, so a partial with use_f64=False takes its place
+    f64_regions = gt.genotype_regions_device
+    gt.genotype_regions_device = functools.partial(f64_regions,
+                                                   use_f64=False)
+    out = os.path.join(tmp, "chrM.genotyper_f32.vcf")
+    counters = RunCounters()
+    pt.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        with recording_genotype_tiles() as record:
+            caller.call_batched(
+                sam, fasta, out,
+                dataclasses.replace(DEFAULT_CONFIG, genotyper_engine="cuda"),
+                counters=counters)
+        wall = time.perf_counter() - t0
+    finally:
+        gt.genotype_regions_device = f64_regions
+    launches = dict(pt.LAUNCHES)
+    with open(out, "rb") as handle:
+        identical = handle.read() == golden
+    emit({"phase": "chrM", "kernel": "genotyper_f32",
+          "golden_identical": identical,
+          "gq_host_verified": counters.gq_host_verified,
+          "variants": counters.variants, "launches": launches,
+          "wall_s": round(wall, 3)})
+    if not identical:
+        raise AssertionError("chrM with the f32 genotyper: not the golden VCF")
+    if not launches["genotype_f32"] or launches["genotype_f64"]:
+        raise AssertionError(f"chrM f32 genotyper: launches {launches}")
+    return {"genotype_f32": launches["genotype_f32"]}, record
+
+
 CONTIG_RUNS = {
     "ppe4": ([], {"ppe4", "ppe_front_planes"},
              {"ppe4", "ppe_front_planes", "ppe_front_nib", "ppe_front_packed"},
@@ -732,15 +1101,23 @@ CONTIG_RUNS = {
     **PATH_RUNS,
     "striped32": (["--pallas-algo", "striped"], {"striped32"}, {"striped32"},
                   {"striped"}),
+    "genotyper_cuda": (["--genotyper", "cuda"],
+                       {"ppe4", "ppe_front_planes", "genotype_f64"},
+                       {"ppe4", "ppe_front_planes", "ppe_front_nib",
+                        "ppe_front_packed", "genotype_f64"},
+                       {"planes", "packednib", "packed"}),
 }
 
 
 def phase_contig(tmp):
     """2 Mb contig at 30x: the cuda engine through the default (adaptive
-    shipping, ppe kernel), each shipping path of PATH_RUNS and the striped
-    kernel, in turns forward then backward so that their walls compare
-    within one call, each VCF byte-identical to the port's native
-    engine's."""
+    shipping, ppe kernel, host genotyper), each shipping path of
+    PATH_RUNS, the striped kernel and the genotype kernel (--genotyper
+    cuda), in turns forward then backward so that their walls and
+    stages.genotype compare within one call, each VCF byte-identical to
+    the port's native engine's.  -> (each kernel's launches in the first
+    run of the path that drives it, the genotype tiles of the first
+    --genotyper cuda run: recording_genotype_tiles)."""
     import torch
 
     from gatk_hc_tpu_torch.tools import make_fixture
@@ -754,10 +1131,16 @@ def phase_contig(tmp):
             "-R", os.path.join(fix, "chr20sim.fa")]
     order = list(CONTIG_RUNS)
     runs = {name: [] for name in order}
+    record = None
     for k, name in enumerate(order + order[::-1]):
         vcf = os.path.join(tmp, f"chr20sim.{k}.{name}.vcf")
         torch.cuda.reset_peak_memory_stats()
-        stats = run_cli(base + ["-O", vcf] + CONTIG_RUNS[name][0])
+        recording = contextlib.nullcontext()
+        if name == "genotyper_cuda" and record is None:
+            recording = recording_genotype_tiles()
+        with recording as tiles:
+            stats = run_cli(base + ["-O", vcf] + CONTIG_RUNS[name][0])
+        record = record or tiles
         stats["cuda_max_memory_allocated_mb"] = round(
             torch.cuda.max_memory_allocated() / 2**20, 1)
         with open(vcf, "rb") as handle:
@@ -790,6 +1173,9 @@ def phase_contig(tmp):
             "cuda_max_memory_allocated_mb": [
                 s["cuda_max_memory_allocated_mb"] for s in done],
         }
+    row["stages_genotype_s"] = {
+        name: [s["stages"].get("genotype") for s in done]
+        for name, done in runs.items()}
     emit(row)
     for name, done in runs.items():
         _flags, must, may, labels = CONTIG_RUNS[name]
@@ -799,13 +1185,13 @@ def phase_contig(tmp):
                                      "from native")
             check_run(f"2 Mb {name}", stats, must, may, labels,
                       fused=name == "fused")
-    # each kernel's launches in the first run of the path that drives it
     return {
         "ppe4": runs["ppe4"][0]["launches"]["ppe4"],
         "striped32": runs["striped32"][0]["launches"]["striped32"],
+        "genotype_f64": runs["genotyper_cuda"][0]["launches"]["genotype_f64"],
         **{f"ppe_front_{path}": runs[path][0]["launches"][f"ppe_front_{path}"]
            for path in FRONTS},
-    }
+    }, record
 
 
 def main() -> int:
@@ -822,9 +1208,19 @@ def main() -> int:
     smi = phase_card()
     kernels = phase_kernels()
     fronts = phase_front()
+    genotypes = phase_genotyper()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         chrm_launches = phase_chrm(tmp)
-        contig_launches = phase_contig(tmp)
+        f32_launches, f32_tiles = phase_chrm_engines(tmp)
+        chrm_launches.update(f32_launches)
+        contig_launches, contig_tiles = phase_contig(tmp)
+    # the genotype kernel at the tiles its main-path runs gave it: the
+    # kernels line reports each instance at its run's most common shape
+    main_tiles = {
+        "genotype_f64": phase_genotyper_main("2 Mb --genotyper cuda",
+                                             contig_tiles),
+        "genotype_f32": phase_genotyper_main("chrM f32 genotyper", f32_tiles),
+    }
     lines = []
     for name in [f"ppe{nr}" for nr in (1, 2, 4, 8)] + [
         f"striped{h}" for h in STRIPES
@@ -862,6 +1258,21 @@ def main() -> int:
             "library_ms": None,
             "shape": {"B": rep["B"], "r_pad": rep["r_pad"],
                       "c_pad": rep["c_pad"]},
+        })
+    for name, main in main_tiles.items():
+        rows = [v for (k, *_rest), v in genotypes.items() if k == name]
+        rows += main
+        rep = main[0]
+        lines.append({
+            "name": name, "route": "cuda", "source": GENOTYPER_SOURCE,
+            "replaces": GENOTYPER_REPLACES,
+            # f64: the 2 Mb --genotyper cuda run; f32: chrM's guarded run
+            "launches": contig_launches.get(name) or chrm_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": None,
+            "shape": {"S": rep["S"], "R": rep["R"], "H": rep["H"]},
         })
     print(smi, flush=True)
     emit({"kernels": lines})

@@ -7,11 +7,16 @@ Extensions over the reference: engine and device selection, deterministic
 downsampling, interval restriction (-L), verbosity, stage timing stats,
 checkpoint/resume manifests, and assembly-graph dumps.  The PairHMM runs on
 the CUDA card by default (--pairhmm cuda --device cuda) through the ppe
-kernel, or the striped kernel with --pallas-algo striped; --device cpu runs
-the same runner through the kernel's plain PyTorch version.  The dispatch
-flags (--dispatch-mode, --no-packed-nib, --fuse-groups, --no-fuse-auto,
---device-timeout) choose how groups are shipped and launched; every choice
-gives the same VCF.
+kernel, or the striped kernel with --pallas-algo striped; --pairhmm diag
+runs the anti-diagonal forward in PyTorch ops, --pairhmm native the C++
+engine, and --pairhmm auto picks native or cuda by the SAM's size on the
+card (always native with --device cpu).
+--genotyper cuda runs the genotype reductions through the CUDA genotype
+kernel (f64) instead of on the host.  --device cpu runs cuda, diag and the
+cuda genotyper through the plain PyTorch versions of their kernels.  The
+dispatch flags (--dispatch-mode, --no-packed-nib, --fuse-groups,
+--no-fuse-auto, --device-timeout) choose how groups are shipped and
+launched; every choice gives the same VCF.
 """
 
 from __future__ import annotations
@@ -40,15 +45,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--pairhmm",
         default=DEFAULT_CONFIG.pairhmm_engine,
-        choices=("cuda", "native", "python"),
+        choices=("auto", "cuda", "diag", "native", "python"),
         help="PairHMM engine (default: %(default)s; cuda = the hand-written "
-        "CUDA kernel through the batched runner, native = the C++ host "
-        "engine, python = the NumPy oracle — bit-exact either way)",
+        "CUDA kernel through the batched runner, diag = the anti-diagonal "
+        "forward in PyTorch ops, one call per region, native = the C++ "
+        "host engine, python = the NumPy oracle, auto = native for a SAM "
+        "under the size where the card wins end to end, cuda otherwise; "
+        "native with --device cpu — bit-exact either way)",
     )
     parser.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
-        help="where --pairhmm cuda runs: the card (default) or the CPU "
-        "through the kernel's plain PyTorch version",
+        help="where --pairhmm cuda / diag and --genotyper cuda run: the "
+        "card (default) or the CPU through the kernels' plain PyTorch "
+        "versions",
     )
     parser.add_argument(
         "--assembler",
@@ -58,8 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--genotyper",
         default=DEFAULT_CONFIG.genotyper_engine,
-        choices=("host",),
-        help="genotype reductions: exact host NumPy f64",
+        choices=("host", "cuda"),
+        help="genotype reductions: exact host NumPy f64 (default) or the "
+        "CUDA genotype kernel in f64, batched over a chunk's sites (the "
+        "same VCF)",
     )
     parser.add_argument(
         "--downsample",
@@ -180,9 +191,20 @@ def _dump_graph(args, cfg) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    pairhmm = args.pairhmm
+    if pairhmm == "auto":
+        import os
+
+        from .config import resolve_auto_pairhmm_engine
+
+        try:
+            sam_bytes = os.path.getsize(args.input)
+        except OSError:
+            sam_bytes = 0  # a missing input errors out later as usual
+        pairhmm = resolve_auto_pairhmm_engine(sam_bytes, args.device)
     cfg = dataclasses.replace(
         DEFAULT_CONFIG,
-        pairhmm_engine=args.pairhmm,
+        pairhmm_engine=pairhmm,
         assembler_engine=args.assembler,
         data_engine=args.data,
         genotyper_engine=args.genotyper,
@@ -239,8 +261,8 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     runner = None
     try:
-        if cfg.pairhmm_engine in ("cuda", "native"):
-            # both run the cross-region batched pipeline (same grouping +
+        if cfg.pairhmm_engine in ("cuda", "diag", "native"):
+            # all run the cross-region batched pipeline (same grouping +
             # columnar data path); "python" stays on the simple per-region
             # oracle pipeline
             if cfg.pairhmm_engine == "cuda":
@@ -256,7 +278,7 @@ def main(argv=None) -> int:
                         args.input, args.reference, args.output, cfg,
                         region_filter=region_filter, logger=logger,
                         timers=timers, counters=counters, manifest=manifest,
-                        runner=runner,
+                        runner=runner, device=args.device,
                     )
             finally:
                 # on ANY exit (errors included): no warm-up launch that has
@@ -266,7 +288,7 @@ def main(argv=None) -> int:
         else:
             results = call(
                 args.input, args.reference, args.output, cfg,
-                region_filter=region_filter,
+                region_filter=region_filter, device=args.device,
             )
     except FileNotFoundError as exc:
         print(f"error: {exc}", file=sys.stderr)
@@ -282,8 +304,15 @@ def main(argv=None) -> int:
             "wall_s": round(elapsed, 3),
             "cells_per_s": round(cells / elapsed) if elapsed else 0,
             "engine": cfg.pairhmm_engine,
+            "genotyper": cfg.genotyper_engine,
             "stages": timers.summary(),
         }
+        if args.pairhmm == "auto":
+            stats["engine_requested"] = "auto"
+        if counters.gq_host_verified:
+            # the f32 genotyper path: sites its stability guard routed to
+            # the exact host f64 recompute
+            stats["gq_host_verified"] = counters.gq_host_verified
         try:
             import resource
 
@@ -310,11 +339,6 @@ def main(argv=None) -> int:
             # every count, so nothing is merged
             if inner.dispatch_counts:
                 stats["dispatch_profile"] = dict(inner.dispatch_counts)
-            from .ops.pairhmm_torch import LAUNCHES
-
-            stats["kernel_launches"] = {
-                name: n for name, n in LAUNCHES.items() if n
-            }
             # stage medians (ms): the caller's time in submit, host pack,
             # H2D, gather (striped only), kernel, D2H (per submit) and host
             # finalize, with their sums
@@ -325,6 +349,13 @@ def main(argv=None) -> int:
                 stats["cuda_max_memory_allocated_mb"] = round(
                     torch.cuda.max_memory_allocated(inner.device) / 2**20, 1
                 )
+        from .ops.pairhmm_torch import LAUNCHES
+
+        # kernel launches of this process (the PairHMM kernels and the
+        # genotype kernel; warm-up launches uncounted)
+        launched = {name: n for name, n in LAUNCHES.items() if n}
+        if launched:
+            stats["kernel_launches"] = launched
         try:
             from . import native
 

@@ -112,15 +112,20 @@ class HCConfig:
     # --- Engine selection ---
     # "cuda": the hand-written CUDA PairHMM kernel through the batched
     #         runner (ops/runner.py::TorchPairHMMRunner);
+    # "diag": the anti-diagonal forward in PyTorch ops, one call per region
+    #         (ops/pairhmm_diag.py; the kernels' independent cross-check);
     # "native": C++ host engine;  "python": slow exact reference oracle.
-    # All engines are bit-exact, so the choice never changes the VCF.
+    # All engines are bit-exact, so the choice never changes the VCF
+    # (the CLI's --pairhmm auto resolves to "native" or "cuda" by input
+    # size: resolve_auto_pairhmm_engine).
     pairhmm_engine: str = "cuda"
     assembler_engine: str = "native"       # "native" | "python"
     data_engine: str = "auto"              # "auto" | "native" | "python":
     # columnar C++ SAM parse + window prep vs per-record Python objects
-    # "host": exact NumPy f64 reductions (the only genotyper this package
-    # has; "jax" names the reference package's device genotyper, which is
-    # not ported yet and raises).
+    # "host": exact NumPy f64 reductions;  "cuda": the same reductions in
+    # float64 through the CUDA genotype kernel, batched over a drained
+    # chunk's sites (models/genotyper.py::genotype_regions_device; the
+    # reference package's "jax" engine).  Both give the same VCF.
     genotyper_engine: str = "host"
     f64_rescue: str = "sentinel"           # "sentinel" | "exact": underflowed
     # f32 pairs get a provably VCF-neutral stand-in vs the reference's exact
@@ -192,6 +197,11 @@ class HCConfig:
     device_timeout_s: float = 1200.0
 
     def __post_init__(self) -> None:
+        if self.genotyper_engine not in ("host", "cuda"):
+            raise ValueError(
+                "genotyper_engine must be 'host' or 'cuda', got "
+                f"{self.genotyper_engine!r}"
+            )
         if self.pallas_algo not in ("ppe", "striped"):
             raise ValueError(
                 f"pallas_algo must be 'ppe' or 'striped', got {self.pallas_algo!r}"
@@ -221,3 +231,24 @@ class HCConfig:
 
 DEFAULT_CONFIG = HCConfig()
 
+
+# --pairhmm auto: below this SAM size the native C++ engine takes less wall
+# than the cuda engine — CUDA context, kernel load and warm-up launches
+# cost more than the card saves on a small input; from it up the card
+# wins.  Measured on one NVIDIA H100 80GB HBM3 at 700.00 W, one process
+# per run, 3 alternated pairs per size (PERF.md section 6, the auto
+# walls; tools/auto_threshold.py): native won up to a 500 kb contig at 30x
+# (35.2 MB of SAM), cuda from 1 Mb (70.4 MB) up; 64 MiB rounds that down.
+# Latency-only choice: every engine is bit-exact, so auto never changes
+# the VCF.
+AUTO_NATIVE_MAX_SAM_BYTES = 64 * 1024 * 1024
+
+
+def resolve_auto_pairhmm_engine(sam_bytes: int, device: str = "cuda") -> str:
+    """The PairHMM engine of ``--pairhmm auto`` for a SAM of ``sam_bytes``
+    on ``device``.  The threshold holds on the card only: on the CPU
+    ("cpu") the cuda engine runs its kernel's plain PyTorch version, far
+    slower than native, so auto is native there."""
+    if device == "cpu" or sam_bytes < AUTO_NATIVE_MAX_SAM_BYTES:
+        return "native"
+    return "cuda"

@@ -25,14 +25,19 @@ from .ops.pairhmm_torch import TABLE_KEYS, plane_tables
 # fuse_groups, fuse_auto, device_timeout_s) are carried across.
 TPU_ONLY_KEYS = ("pair_batch",)
 
-# Reference PairHMM engine names -> the port's.  "pallas" is the device
-# kernel engine on either side; the others are not ported yet.
-_ENGINES = {"pallas": "cuda", "native": "native", "python": "python"}
+# Reference engine names -> the port's.  "pallas" is the device kernel
+# engine on either side, "jax" the anti-diagonal jnp engine ("diag" here);
+# "shardmap" and "auto" (a CLI choice, resolved before a config exists)
+# are not ported.  The reference's device genotyper "jax" is the port's
+# "cuda" genotyper.
+_ENGINES = {"pallas": "cuda", "jax": "diag", "native": "native",
+            "python": "python"}
+_GENOTYPERS = {"host": "host", "jax": "cuda"}
 
 
 def config_from_reference(d: Mapping[str, object]) -> HCConfig:
     """``dataclasses.asdict`` of the reference HCConfig -> the port's
-    HCConfig.  Drops TPU_ONLY_KEYS, maps the engine name, and raises on
+    HCConfig.  Drops TPU_ONLY_KEYS, maps the engine names, and raises on
     any key it does not know and on settings that are not ported."""
     fields = {f.name for f in dataclasses.fields(HCConfig)}
     unknown = sorted(set(d) - fields - set(TPU_ONLY_KEYS))
@@ -46,8 +51,13 @@ def config_from_reference(d: Mapping[str, object]) -> HCConfig:
                 f"pairhmm engine {engine!r} is not ported yet"
             )
         kwargs["pairhmm_engine"] = _ENGINES[engine]
-    if kwargs.get("genotyper_engine", "host") != "host":
-        raise NotImplementedError("device genotyper not ported yet")
+    genotyper = kwargs.get("genotyper_engine")
+    if genotyper is not None:
+        if genotyper not in _GENOTYPERS:
+            raise NotImplementedError(
+                f"genotyper engine {genotyper!r} is not ported"
+            )
+        kwargs["genotyper_engine"] = _GENOTYPERS[genotyper]
     if isinstance(kwargs.get("sw_params"), Mapping):
         kwargs["sw_params"] = SWParameters(**kwargs["sw_params"])
     for key in ("read_pad_buckets", "hap_pad_buckets"):

@@ -11,7 +11,9 @@ Deliberate fixes over the reference (documented, SURVEY.md §3):
 * downsampling is deterministic (HCConfig.downsample_mode).
 
 The PairHMM engine is pluggable so the same pipeline runs the CUDA kernel
-engine, the C++ native engine, or the Python oracle.
+engine, the anti-diagonal PyTorch-ops engine, the C++ native engine, or the
+Python oracle; the genotyper runs on the host or through the CUDA genotype
+kernel.
 """
 
 from __future__ import annotations
@@ -124,8 +126,10 @@ def call_region(
     cfg: HCConfig,
     pairhmm_engine: PairHMMEngine,
     assemble_fn: AssembleFn,
+    device="cuda",
 ) -> RegionResult:
-    """haplotypecaller.hpp:83-107 for one window."""
+    """haplotypecaller.hpp:83-107 for one window (``device``: where the
+    "cuda" genotyper runs)."""
     reads = filter_reads(reads, cfg)
     reads = hard_clip_reads(reads, padded_region, cfg)
     result = RegionResult(origin_region, padded_region, len(reads), 0, [])
@@ -140,7 +144,8 @@ def call_region(
     result.cell_updates = sum(len(r) for r in reads) * sum(len(h) for h in haplotypes)
     likelihoods, kept = compute_likelihoods(reads, haplotypes, cfg, pairhmm_engine)
     result.variants = assign_genotype_likelihoods(
-        kept, haplotypes, likelihoods, window_ref, padded_region, origin_region, cfg
+        kept, haplotypes, likelihoods, window_ref, padded_region, origin_region,
+        cfg, device,
     )
     return result
 
@@ -176,13 +181,15 @@ def call(
     pairhmm_engine: Optional[PairHMMEngine] = None,
     assemble_fn: Optional[AssembleFn] = None,
     region_filter: Optional[Callable[[int], bool]] = None,
+    device="cuda",
 ) -> List[RegionResult]:
     """End-to-end SAM + FASTA -> VCF.  Returns per-region results; writes the
-    VCF if ``out_path`` is given."""
+    VCF if ``out_path`` is given.  ``device`` is where the "cuda" and "diag"
+    PairHMM engines and the "cuda" genotyper run."""
     from ..ops.engines import make_pairhmm_engine, make_assemble_fn
 
     if pairhmm_engine is None:
-        pairhmm_engine = make_pairhmm_engine(cfg)
+        pairhmm_engine = make_pairhmm_engine(cfg, device=device)
     if assemble_fn is None:
         assemble_fn = make_assemble_fn(cfg)
 
@@ -200,7 +207,8 @@ def call(
             continue
         window_ref = ref[padded.begin : padded.end]
         results.append(
-            call_region(reads, window_ref, padded, origin, cfg, pairhmm_engine, assemble_fn)
+            call_region(reads, window_ref, padded, origin, cfg, pairhmm_engine,
+                        assemble_fn, device)
         )
 
     if out_path is not None:
@@ -221,6 +229,7 @@ def call_batched(
     counters: Optional[RunCounters] = None,
     manifest=None,
     start_ranges=None,
+    device="cuda",
 ) -> List[RegionResult]:
     """Two-phase pipeline for device engines: assemble ALL regions on the
     host first, dispatch PairHMM for all regions in a few large device
@@ -233,7 +242,11 @@ def call_batched(
     hosts no longer parse the full file N times (SURVEY.md §7 step 7).
     With cfg.stream_contigs, contigs are parsed one at a time from byte
     slices found by a single ranged scan, and each contig's columns are
-    freed once its last region is assembled (bounded memory for WGS)."""
+    freed once its last region is assembled (bounded memory for WGS).
+
+    ``device`` is where the runner this builds for the "cuda" or "diag"
+    engine and the "cuda" genotyper run ("cuda" or "cpu"); it is not a
+    config key."""
     from ..ops.engines import make_assemble_fn
     from ..ops.pairhmm_oracle import normalize_and_filter
     from ..ops.runner import PairHMMJob
@@ -245,11 +258,15 @@ def call_batched(
         if cfg.pairhmm_engine == "cuda":
             from ..ops.runner import TorchPairHMMRunner
 
-            runner = TorchPairHMMRunner(cfg)
+            runner = TorchPairHMMRunner(cfg, device=device)
         elif cfg.pairhmm_engine == "native":
             from ..ops.runner import NativePairHMMRunner
 
             runner = NativePairHMMRunner(cfg)
+        elif cfg.pairhmm_engine == "diag":
+            from ..ops.runner import DiagPairHMMRunner
+
+            runner = DiagPairHMMRunner(cfg, device=device)
         else:
             raise ValueError(
                 f"pairhmm engine {cfg.pairhmm_engine!r} has no batched runner"
@@ -465,11 +482,13 @@ def call_batched(
                 genotype_chunk(entries)
 
     def genotype_entries(entries):
-        # The host engine genotypes a whole drained chunk as ONE
-        # cross-region batch of padded NumPy f64 tiles
-        # (genotype_regions_numpy) — per-site small-matrix call overhead
-        # dominated the stage at WGS scale.  The per-site path (assign_genotype_likelihoods) remains
-        # the oracle, used by call_region and the differential tests.
+        # Both engines genotype a whole drained chunk as ONE cross-region
+        # batch: "cuda" as padded tiles through the genotype kernel on
+        # ``device`` (genotype_regions_device, its own CUDA stream), "host"
+        # as padded NumPy f64 tiles (genotype_regions_numpy) — per-site
+        # small-matrix call overhead dominated the stage at WGS scale.  The
+        # per-site path (assign_genotype_likelihoods) remains the oracle,
+        # used by call_region and the differential tests.
         batched = []
         for result, reads, haplotypes, window_ref, job in entries:
             columnar_reads = hasattr(reads, "lengths")
@@ -492,11 +511,17 @@ def call_batched(
                   result.padded, result.origin))
             )
         if batched:
-            from .genotyper import genotype_regions_numpy
+            from .genotyper import genotype_regions_device, genotype_regions_numpy
 
-            if cfg.genotyper_engine == "jax":
-                raise NotImplementedError("device genotyper not ported yet")
-            per_region = genotype_regions_numpy([b[1] for b in batched], cfg)
+            if cfg.genotyper_engine == "cuda":
+                per_region = genotype_regions_device(
+                    [b[1] for b in batched], cfg, device=device,
+                    counters=counters,
+                )
+            else:
+                per_region = genotype_regions_numpy(
+                    [b[1] for b in batched], cfg
+                )
             for (result, _inputs), region_variants in zip(batched, per_region):
                 result.variants = region_variants
                 counters.variants += len(result.variants)

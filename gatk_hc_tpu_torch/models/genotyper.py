@@ -360,10 +360,15 @@ def assign_genotype_likelihoods(
     padded_region: Interval,
     origin_region: Interval,
     cfg: HCConfig,
+    device="cuda",
 ) -> List[Variant]:
-    """genotyper.hpp:369-398."""
-    if cfg.genotyper_engine == "jax":
-        raise NotImplementedError("device genotyper not ported yet")
+    """genotyper.hpp:369-398.  The "cuda" engine runs the reductions on
+    ``device`` (genotype_regions_device)."""
+    if cfg.genotyper_engine == "cuda":
+        return _assign_genotype_likelihoods_device(
+            reads, haplotypes, likelihoods, ref, padded_region,
+            origin_region, cfg, device,
+        )
     variants: List[Variant] = []
     for alleles, alleles_loc, haplotype_mapper, keep_mask in _site_specs(
         reads, haplotypes, ref, padded_region, origin_region, cfg
@@ -394,9 +399,8 @@ _S_BUCKETS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 
 def _genotype_sites_numpy(lik, h2a, keep, hv, ac: int, max_gq: int):
-    """Pure-NumPy f64 batched site reductions (the reference package's
-    device genotyper computes the same function) for one
-    allele-count bucket (``ac`` a Python int, so only the true genotype
+    """Pure-NumPy f64 twin of ops/genotyper_cuda.py::genotype_sites_cuda
+    for one allele-count bucket (``ac`` a Python int, so only the true genotype
     columns are computed).  Bit-exact with the per-site host reductions:
     max is order-independent, masked reads add 0.0 inside the same
     left-to-right cumsum, and the flipped-argmax best scan reproduces
@@ -443,6 +447,39 @@ def _genotype_sites_numpy(lik, h2a, keep, hv, ac: int, max_gq: int):
     return best_index, gq
 
 
+def _site_refs(region_inputs, cfg):
+    """[(region idx, alleles, loc, hap -> allele map, kept reads)] of every
+    emitted site of ``region_inputs``, in region then event order."""
+    return [
+        (ridx, alleles, loc, mapper, keep)
+        for ridx, (reads, haps, _lik, ref, padded, origin)
+        in enumerate(region_inputs)
+        for alleles, loc, mapper, keep in _site_specs(
+            reads, haps, ref, padded, origin, cfg)
+    ]
+
+
+def _site_tile(region_inputs, site_refs, site_ids, R: int, H: int, S: int):
+    """Sites ``site_ids`` padded into one (S, R, H) tile: f64
+    likelihoods, hap -> allele map, kept reads, valid haps and allele
+    counts (padding sites: no reads, no haps, one allele)."""
+    lik_t = np.zeros((S, R, H))
+    h2a = np.zeros((S, H), np.int32)
+    keep_t = np.zeros((S, R), bool)
+    hv = np.zeros((S, H), bool)
+    ac = np.ones(S, np.int32)
+    for k, s_i in enumerate(site_ids):
+        ridx, alleles, _loc, mapper, keep = site_refs[s_i]
+        lik = region_inputs[ridx][2]
+        nr, nh = lik.shape
+        lik_t[k, :nr, :nh] = lik
+        h2a[k, :nh] = mapper
+        keep_t[k, :nr] = keep
+        hv[k, :nh] = True
+        ac[k] = len(alleles)
+    return lik_t, h2a, keep_t, hv, ac
+
+
 def genotype_regions_numpy(region_inputs, cfg) -> List[List[Variant]]:
     """Cross-region batched HOST genotyping: the production shape of the
     default ("host") engine.  Sites from a whole drained chunk are bucketed
@@ -451,14 +488,7 @@ def genotype_regions_numpy(region_inputs, cfg) -> List[List[Variant]]:
     small-matrix NumPy calls whose fixed overhead dominated the genotype
     stage at WGS scale.  Bit-identical to the per-site path (which remains
     the oracle; tests/test_genotyper.py differential-tests the two)."""
-    site_refs = []  # (region idx, alleles, loc, mapper, keep)
-    for ridx, (reads, haps, lik, ref, padded, origin) in enumerate(
-        region_inputs
-    ):
-        for alleles, loc, mapper, keep in _site_specs(
-            reads, haps, ref, padded, origin, cfg
-        ):
-            site_refs.append((ridx, alleles, loc, mapper, keep))
+    site_refs = _site_refs(region_inputs, cfg)
     variants: List[List[Variant]] = [[] for _ in region_inputs]
     if not site_refs:
         return variants
@@ -471,19 +501,8 @@ def genotype_regions_numpy(region_inputs, cfg) -> List[List[Variant]]:
     out_gt: List = [None] * len(site_refs)
     out_gq: List = [None] * len(site_refs)
     for (R, H, ac), site_ids in buckets.items():
-        S = len(site_ids)
-        lik_t = np.zeros((S, R, H))
-        h2a = np.zeros((S, H), np.int32)
-        keep_t = np.zeros((S, R), bool)
-        hv = np.zeros((S, H), bool)
-        for k, s_i in enumerate(site_ids):
-            ridx, _alleles, _loc, mapper, keep = site_refs[s_i]
-            lik = region_inputs[ridx][2]
-            nr, nh = lik.shape
-            lik_t[k, :nr, :nh] = lik
-            h2a[k, :nh] = mapper
-            keep_t[k, :nr] = keep
-            hv[k, :nh] = True
+        lik_t, h2a, keep_t, hv, _ac = _site_tile(
+            region_inputs, site_refs, site_ids, R, H, len(site_ids))
         best, gq = _genotype_sites_numpy(
             lik_t, h2a, keep_t, hv, ac, cfg.max_genotype_quality
         )
@@ -494,3 +513,186 @@ def genotype_regions_numpy(region_inputs, cfg) -> List[List[Variant]]:
     for s_i, (ridx, alleles, loc, _m, _k) in enumerate(site_refs):
         _emit(alleles, loc, out_gt[s_i], out_gq[s_i], cfg, variants[ridx])
     return variants
+
+
+#: f32 unit roundoff (the kernel's type on the guarded f32 path)
+_EPS32 = 2.0 ** -24
+#: worst-case Jacobian-table index flip (f32 diff can round the table index
+#: to a neighbour; adjacent log10(1+10^-x) entries differ by < 2.6e-5)
+_JAC_SLOT_ERR = 3e-5
+
+
+def _f32_total_bound(m: np.ndarray, n_reads: np.ndarray) -> np.ndarray:
+    """Conservative absolute error bound |totals_f32 - totals_f64| per site.
+
+    Per-read terms carry the f64->f32 input cast (<= m*eps), the het/hom
+    compose roundings (<= 2*m*eps + table cast), and a possible Jacobian
+    index flip (<= _JAC_SLOT_ERR); the Neumaier-compensated device sum
+    contributes <= 2*eps*sum|v| <= 2*eps*n*m, and the final n*log10(2)
+    subtract two more roundings.  Folded: n * (7*m*eps + slot_err).
+
+    m: per-site max |value| (max |lik| + 0.4 covers the log10(2)/Jacobian
+    adds); n_reads: kept reads per site."""
+    return n_reads * (7.0 * m * _EPS32 + _JAC_SLOT_ERR) + 1e-7
+
+
+def genotype_regions_device(
+    region_inputs, cfg, device="cuda", use_f64=True, counters=None
+) -> List[List[Variant]]:
+    """Cross-region batched device genotyping (the "cuda" engine): sites
+    from MANY regions are bucketed into a handful of padded (S, R, H)
+    tiles and each bucket is ONE genotype kernel launch
+    (ops/genotyper_cuda.py) on ``device`` ("cuda": the card; "cpu": the
+    kernel's plain PyTorch version).
+
+    ``region_inputs``: [(reads, haplotypes, likelihoods, window_ref,
+    padded_region, origin_region)] per region.  Returns each region's
+    variants in region order.
+
+    On a card the tiles go through pinned host memory on the genotyper's
+    own CUDA stream: phase 1 copies and launches every bucket without a
+    wait, phase 2 brings every bucket's best + GQ home in ONE readback (and,
+    on the f32 path, every genotype likelihood tile in one more), so it
+    neither waits behind nor touches the PairHMM runner's stream.
+
+    EXACTNESS: ``use_f64`` (the default on every device: the H100 has
+    native f64) runs the float64 kernel, bit-identical to the host engine.
+    With ``use_f64=False`` the float32 kernel's result is accepted ONLY
+    where it is provably stable: the top-2 genotype gap must exceed twice
+    the f32 error bound (GT/argmax stability, including the
+    later-ties-win rule) and -10*(second-best)+0.5 must sit farther than
+    the scaled bound from its floor boundary (GQ rounding stability, with
+    the >=max_gq cap handled in the deep-capped branch).  Sites failing
+    either check, counted in counters.gq_host_verified, recompute on the
+    exact host f64 path, so neither type can emit a GT/GQ that differs from
+    the host engine."""
+    import contextlib
+
+    import torch
+
+    from ..ops.genotyper_cuda import genotype_pair_tables, genotype_sites_device
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "genotype_regions_device: no CUDA device is available "
+            "(pass device='cpu' to run the kernel's plain version)"
+        )
+    site_refs = _site_refs(region_inputs, cfg)
+    variants: List[List[Variant]] = [[] for _ in region_inputs]
+    if not site_refs:
+        return variants
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    dtype = np.float64 if use_f64 else np.float32
+    max_gq = cfg.max_genotype_quality
+    buckets: Dict[Tuple[int, int], List[int]] = {}
+    for s_i, (ridx, *_rest) in enumerate(site_refs):
+        lik = region_inputs[ridx][2]
+        R = _pad_up(lik.shape[0], _R_BUCKETS)
+        H = _pad_up(lik.shape[1], _H_BUCKETS)
+        buckets.setdefault((R, H), []).append(s_i)
+    out_gt: List = [None] * len(site_refs)
+    out_gq: List = [None] * len(site_refs)
+    unstable_ids: List[int] = []
+    a1_tab, a2_tab = genotype_pair_tables()
+    pending = []  # (site_ids, lik_t, keep_t, gl_dev, best_dev, gq_dev)
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        # Phase 1: copy and launch EVERY bucket before reading anything
+        for (R, H), site_ids in buckets.items():
+            # f64 originals: the guard and the recompute read them
+            lik_t, h2a, keep_t, hv, ac = _site_tile(
+                region_inputs, site_refs, site_ids, R, H,
+                _pad_up(len(site_ids), _S_BUCKETS))
+            gl, best, gq = genotype_sites_device(
+                lik_t.astype(dtype), h2a, keep_t, hv, ac, device,
+                max_gq=max_gq,
+            )
+            pending.append((site_ids, lik_t, keep_t, gl, best, gq))
+        # Phase 2: every bucket's best + GQ in one readback; the f32
+        # guard's likelihood tiles (36 wide everywhere) in one more
+        sizes = [int(p[4].shape[0]) for p in pending]
+        ints = torch.cat(
+            [p[4] for p in pending] + [p[5] for p in pending]).cpu().numpy()
+        gl_all = None if use_f64 else torch.cat(
+            [p[3] for p in pending]).cpu().numpy()
+    off = np.cumsum([0] + sizes)
+    total = int(off[-1])
+    for i, (site_ids, lik_t, keep_t, _gl, _b, _g) in enumerate(pending):
+        best = ints[off[i]:off[i + 1]]
+        gq = ints[total + off[i]:total + off[i + 1]]
+        n = len(site_ids)
+        if use_f64:
+            stable = np.ones(n, bool)
+        else:
+            gl = gl_all[off[i]:off[i + 1]].astype(np.float64)[:n]
+            m = np.abs(lik_t[:n]).max(axis=(1, 2)) + 0.4
+            bound = _f32_total_bound(m, keep_t[:n].sum(axis=1))
+            best_val = np.take_along_axis(gl, best[:n, None], axis=1)[:, 0]
+            rest = gl.copy()
+            np.put_along_axis(rest, best[:n, None], -np.inf, axis=1)
+            second_val = rest.max(axis=1)
+            gap = best_val - second_val
+            gt_stable = gap > 2.0 * bound
+            # GQ rounding: floor(q + 0.5) flips only if q + 0.5 is within
+            # 10*(2*bound) of an integer; deep-capped sites (q + 0.5 past
+            # max_gq + 1 by the same margin) emit max_gq regardless
+            q = -10.0 * (second_val - best_val)
+            frac = (q + 0.5) % 1.0
+            margin = 20.0 * bound
+            gq_stable = np.minimum(frac, 1.0 - frac) > margin
+            deep_capped = (q + 0.5) - (max_gq + 1) > margin
+            stable = gt_stable & (gq_stable | deep_capped)
+        for k, s_i in enumerate(site_ids):
+            if stable[k]:
+                out_gt[s_i] = (int(a1_tab[best[k]]), int(a2_tab[best[k]]))
+                out_gq[s_i] = int(gq[k])
+            else:
+                unstable_ids.append(s_i)
+    if unstable_ids:
+        if counters is not None:
+            counters.gq_host_verified += len(unstable_ids)
+        _host_recompute_sites(
+            region_inputs, site_refs, unstable_ids, out_gt, out_gq, cfg
+        )
+    for s_i, (ridx, alleles, loc, _m, _k) in enumerate(site_refs):
+        _emit(alleles, loc, out_gt[s_i], out_gq[s_i], cfg, variants[ridx])
+    return variants
+
+
+def _host_recompute_sites(
+    region_inputs, site_refs, site_ids, out_gt, out_gq, cfg
+) -> None:
+    """Exact host f64 recompute for guard-flagged sites, grouped by
+    (padded R, padded H, allele count) through _genotype_sites_numpy."""
+    groups: Dict[Tuple[int, int, int], List[int]] = {}
+    for s_i in site_ids:
+        ridx = site_refs[s_i][0]
+        lik = region_inputs[ridx][2]
+        R = _pad_up(lik.shape[0], _R_BUCKETS)
+        H = _pad_up(lik.shape[1], _H_BUCKETS)
+        groups.setdefault((R, H, len(site_refs[s_i][1])), []).append(s_i)
+    for (R, H, ac), ids in groups.items():
+        lik_t, h2a, keep_t, hv, _ac = _site_tile(
+            region_inputs, site_refs, ids, R, H, len(ids))
+        best, gq = _genotype_sites_numpy(
+            lik_t, h2a, keep_t, hv, ac, cfg.max_genotype_quality
+        )
+        a1, a2 = _triu_pairs(ac)
+        for k, s_i in enumerate(ids):
+            out_gt[s_i] = (int(a1[best[k]]), int(a2[best[k]]))
+            out_gq[s_i] = int(gq[k])
+
+
+def _assign_genotype_likelihoods_device(
+    reads, haplotypes, likelihoods, ref, padded_region, origin_region, cfg,
+    device="cuda",
+) -> List[Variant]:
+    """Device-engine genotyper for ONE region: the same host-side site
+    prep, reductions in ops/genotyper_cuda.py.  The batched production
+    path (caller.py genotype_entries) calls genotype_regions_device
+    directly, one launch per bucket of a whole drained chunk."""
+    return genotype_regions_device(
+        [(reads, haplotypes, likelihoods, ref, padded_region, origin_region)],
+        cfg, device=device,
+    )[0]

@@ -25,8 +25,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# -fmad=false: no mul+add contraction (bit-exactness vs the oracle);
-# -ftz=true: f32 results flush to zero like the reference's FTZ mode.
+# -fmad=false: no mul+add contraction, f32 or f64 (bit-exactness vs the
+# oracle and the host genotyper); -ftz=true: f32 results flush to zero like
+# the reference's FTZ mode (the plain versions flush where the kernels do;
+# f64 is never flushed).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -151,8 +153,25 @@ def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
     shape.argtypes = [i, i, i, i, vp]  # r_pad, c_pad, stripe, k, int[3] out
 
 
+def _bind_genotyper(lib: ctypes.CDLL) -> None:
+    """The genotyper's reductions over one padded site tile; ``f64``
+    picks the <double> or <float> instance."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.genotype_sites
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        i,  # f64
+        vp, vp, vp, vp, vp, vp,  # lik, hap_to_allele, keep, hap_valid, ac, jac
+        vp, vp, vp,  # gl, best, gq
+        i, i, i, i,  # S, R, H, max_gq
+        ctypes.c_double,  # log10(2)
+        vp,  # cudaStream_t
+    ]
+
+
 _BINDERS = {
     "pairhmm_ppe": _bind_pairhmm_ppe,
     "pairhmm_striped": _bind_pairhmm_striped,
+    "genotyper": _bind_genotyper,
 }
 KERNELS = tuple(_BINDERS)

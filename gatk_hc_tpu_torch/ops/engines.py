@@ -5,6 +5,8 @@ Engines (HCConfig.pairhmm_engine):
 * "native" — the C++ host library (CPU production path + f64 rescue)
 * "cuda"   — the hand-written CUDA ppe kernel through the batched runner
   (production device path; ops/runner.py::TorchPairHMMRunner)
+* "diag"   — the anti-diagonal forward in PyTorch ops, padded per region
+  (ops/pairhmm_diag.py; an independent cross-check of the kernels)
 
 All engines produce the same read-major log10 matrix; rescue (raw f32 result
 below MIN_ACCEPTED) always runs through the float64 host path.
@@ -44,7 +46,9 @@ def _to_arrays(reads: Sequence[SAMRecord], haps: Sequence[Haplotype]):
     return read_arrays, hap_arrays
 
 
-def make_pairhmm_engine(cfg: HCConfig) -> Callable:
+def make_pairhmm_engine(cfg: HCConfig, device="cuda") -> Callable:
+    """The per-region engine of ``cfg.pairhmm_engine``; "cuda" and "diag"
+    run on ``device``."""
     name = cfg.pairhmm_engine
     if name == "python":
 
@@ -65,7 +69,11 @@ def make_pairhmm_engine(cfg: HCConfig) -> Callable:
     if name == "cuda":
         from .runner import torch_pairhmm_engine
 
-        return torch_pairhmm_engine(cfg)
+        return torch_pairhmm_engine(cfg, device=device)
+    if name == "diag":
+        from .pairhmm_diag import diag_pairhmm_engine
+
+        return diag_pairhmm_engine(cfg, device=device)
     raise ValueError(f"unknown pairhmm engine {name!r}")
 
 

@@ -43,11 +43,14 @@ MIN_NORMAL = float(np.ldexp(1.0, -126))
 # CLI's --stats read these).  A launch of the ppe kernel's unique-rows
 # entry (ops/pairhmm_front.py) also counts under its source,
 # "ppe_front_<planes|packed|nib>", so "ppe<NR>" less those is the
-# pair-minor entry's launches.
+# pair-minor entry's launches.  The genotyper kernel (ops/genotyper_cuda.py)
+# counts here too, per instance ("genotype_f64", "genotype_f32").
 LAUNCHES: Dict[str, int] = {
     **{f"ppe{nr}": 0 for nr in (1, 2, 4, 8)},
     **{f"striped{h}": 0 for h in (8, 16, 32)},
     **{f"ppe_front_{path}": 0 for path in ("planes", "packed", "nib")},
+    "genotype_f64": 0,
+    "genotype_f32": 0,
 }
 
 

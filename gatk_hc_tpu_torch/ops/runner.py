@@ -1359,6 +1359,28 @@ class BackgroundRunner:
             self._runner.stop_prewarm()
 
 
+class DiagPairHMMRunner:
+    """Batch runner over the anti-diagonal PyTorch-ops forward
+    (ops/pairhmm_diag.py) — what ``--pairhmm diag`` means in call_batched:
+    one engine call per job, on ``device``.  The counterpart of the
+    reference's JnpPairHMMRunner; an independent cross-check of the CUDA
+    kernels, so it shares none of their code."""
+
+    def __init__(self, cfg: HCConfig, device="cuda"):
+        from .pairhmm_diag import diag_pairhmm_engine
+
+        self.cfg = cfg
+        self._engine = diag_pairhmm_engine(cfg, device=device)
+
+    def run(self, jobs: Sequence[PairHMMJob]) -> None:
+        for job in jobs:
+            nr, nh = len(job.reads), len(job.haps)
+            if nr * nh == 0:
+                job.result = np.zeros((nr, nh))
+                continue
+            job.result = self._engine(job.reads, job.haps)
+
+
 class NativePairHMMRunner:
     """CPU batch runner over the C++ PairHMM engine — same job interface and
     exact semantics (f32 + FTZ with f64 rescue below MIN_ACCEPTED) as the

@@ -38,6 +38,11 @@ class RunCounters:
     cell_updates: int = 0
     rescued_pairs: int = 0
     variants: int = 0
+    # --genotyper cuda on its f32 path (use_f64=False): sites whose GT/GQ
+    # decision was not provably stable under the f32 error bound and re-ran
+    # on the exact host f64 path (models/genotyper.py::
+    # genotype_regions_device guard)
+    gq_host_verified: int = 0
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self))

@@ -78,14 +78,6 @@ def test_cuda_runner_raises_without_gpu(monkeypatch):
     assert TorchPairHMMRunner(DEFAULT_CONFIG, device="cpu").device.type == "cpu"
 
 
-def test_device_genotyper_not_ported(tmp_path):
-    cfg = dataclasses.replace(
-        DEFAULT_CONFIG, pairhmm_engine="native", genotyper_engine="jax"
-    )
-    with pytest.raises(NotImplementedError):
-        call_batched(SAM, FASTA, None, cfg, region_filter=lambda i: i < 3)
-
-
 def _port_modules():
     mods = []
     for dirpath, _dirs, files in os.walk(PORT):

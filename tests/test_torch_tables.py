@@ -184,11 +184,32 @@ def test_config_from_reference_striped_runs_striped_kernel():
 
 
 def test_config_from_reference_rejects():
+    """Unknown keys raise; the engines the port has not ported (shardmap,
+    and auto, which the reference's CLI resolves before a config exists)
+    raise; the reference's "jax" engine and genotyper now map."""
     d = dataclasses.asdict(jax_config.DEFAULT_CONFIG)
     with pytest.raises(ValueError, match="unknown"):
         convert.config_from_reference({**d, "no_such_key": 1})
-    for engine in ("jax", "shardmap", "auto"):
+    for engine in ("shardmap", "auto"):
         with pytest.raises(NotImplementedError):
             convert.config_from_reference({**d, "pairhmm_engine": engine})
     with pytest.raises(NotImplementedError):
-        convert.config_from_reference({**d, "genotyper_engine": "jax"})
+        convert.config_from_reference({**d, "genotyper_engine": "gpu"})
+    convert.config_from_reference({**d, "pairhmm_engine": "jax"})
+    convert.config_from_reference({**d, "genotyper_engine": "jax"})
+
+
+@pytest.mark.parametrize("engine,genotyper,want", [
+    ("jax", "host", ("diag", "host")),
+    ("pallas", "jax", ("cuda", "cuda")),
+    ("native", "jax", ("native", "cuda")),
+    ("python", "host", ("python", "host")),
+])
+def test_config_from_reference_maps_engines(engine, genotyper, want):
+    """The reference's engine names -> the port's: pallas -> cuda (the
+    kernel engine), jax -> diag (the anti-diagonal engine), and the
+    device genotyper jax -> cuda."""
+    ref = dataclasses.replace(jax_config.DEFAULT_CONFIG, pairhmm_engine=engine,
+                              genotyper_engine=genotyper)
+    got = convert.config_from_reference(dataclasses.asdict(ref))
+    assert (got.pairhmm_engine, got.genotyper_engine) == want
