@@ -23,7 +23,13 @@ striped kernel (--pallas-algo striped) and the genotype kernel
 (--genotyper cuda) — on the chrM fixture (byte-identical to the golden
 VCF; also through --pairhmm native --genotyper cuda, the f32 genotyper
 path, --pairhmm diag and --pairhmm auto) and on a 2 Mb contig at 30x
-(byte-identical to the port's native C++ engine).
+(byte-identical to the port's native C++ engine).  Last, the multi-device
+and multi-process paths on the one card: the sharded step on a 1x1 and a
+2x2 grid of cuda:0 (bit-equal to the unsharded forward, its plain version
+and the runner), dryrun_multichip(1), --pairhmm shardmap on chrM (golden)
+and on the 2 Mb contig, the runner over two slots of cuda:0 and two CLI
+processes joined by gloo over loopback on the 2 Mb contig (each identical
+to native).
 Every phase prints one JSON line and raises on failure.  The last lines are
 the card's name and power limit (nvidia-smi), one JSON object per kernel
 with its times, launches and bound, and ``{"ok": true, "device": ...}``.
@@ -1194,6 +1200,261 @@ def phase_contig(tmp):
     }, record
 
 
+def region_tile(rng, n_reads, n_haps, read_len, hap_len):
+    """Seeded region-like reads and haplotypes as bytes: each read drawn
+    from a haplotype with ~1% substitutions, Phred 28-40 qualities (a few
+    5-20), and one unrelated read in eight (which underflows on long
+    reads).  -> ([(bases, quals)], [hap])."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    haps = [acgt[rng.integers(0, 4, hap_len)] for _ in range(n_haps)]
+    reads = []
+    for i in range(n_reads):
+        hap = haps[i % n_haps]
+        start = int(rng.integers(0, hap_len - read_len + 1))
+        read = hap[start : start + read_len].copy()
+        sub = rng.random(read_len) < 0.01
+        read[sub] = acgt[rng.integers(0, 4, int(sub.sum()))]
+        if i % 8 == 7:
+            read = acgt[rng.integers(0, 4, read_len)]
+        qual = rng.integers(28, 41, read_len)
+        low = rng.random(read_len) < 0.03
+        qual[low] = rng.integers(5, 21, int(low.sum()))
+        reads.append((read, (qual + 33).astype(np.uint8)))
+    return reads, haps
+
+
+def sharded_check(grid_name, grid, shape, reads, haps, cfg, device="cuda:0"):
+    """The sharded raw step on ``grid`` over a region tile, against the
+    unsharded forward on the card, its plain version on the CPU and the
+    cuda runner on the same pairs (all bit for bit), with ``best`` and
+    ``n_rescue`` recomputed on the host.  Raises on a mismatch."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.ops.pairhmm_torch import transition_constants
+    from gatk_hc_tpu_torch.ops.runner import PairHMMJob, TorchPairHMMRunner
+    from gatk_hc_tpu_torch.parallel import sharded_step as ss
+    from gatk_hc_tpu_torch.utils.quality import MIN_ACCEPTED
+
+    trans = transition_constants(cfg.gop_char, cfg.gcp_char)
+    r_pad, c_pad = shape
+    nr, nh = len(reads), len(haps)
+    nr_pad = ss._pow2_multiple(nr, grid.shape["data"])
+    nh_pad = ss._pow2_multiple(nh, grid.shape["hap"])
+    arrays = (ss._read_planes(reads, nr_pad, r_pad)
+              + ss._hap_planes(haps, nh_pad, c_pad))
+    step = ss.make_sharded_raw_step(grid, trans, r_pad, c_pad, cfg)
+    inputs = ss.shard_inputs(grid, arrays, ss.READ_SPECS + ss.HAP_SPECS)
+    step(*inputs)  # warm
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw, best, n_rescue = step(*inputs)
+    step_ms = (time.perf_counter() - t0) * 1e3
+
+    def unsharded(device):
+        return ss._forward_local(
+            *(torch.from_numpy(a).to(device) for a in arrays), trans, r_pad,
+            c_pad, algo=cfg.pallas_algo, ppe_rows=cfg.ppe_rows,
+            stripe=cfg.stripe_height).cpu().numpy()
+
+    card = unsharded(device)
+    plain = unsharded("cpu")
+    runner = TorchPairHMMRunner(cfg, device=device)
+    batch = runner.submit([PairHMMJob(reads, haps)]).result()
+    runner.drain([batch])
+    by_runner = batch.host_out.numpy()[: nr * nh].reshape(nr, nh)
+    row = {
+        "grid": grid_name, "shape": {"reads": nr, "haps": nh, "r_pad": r_pad,
+                                     "c_pad": c_pad},
+        "padded": [nr_pad, nh_pad],
+        "equal_unsharded_card": bool(np.array_equal(raw, card)),
+        "equal_plain": bool(np.array_equal(raw, plain)),
+        "equal_runner": bool(np.array_equal(raw[:nr, :nh], by_runner)),
+        "best_ok": bool(np.array_equal(best, raw.max(axis=1))),
+        "n_rescue": int(n_rescue[0]),
+        "n_rescue_ok": int(n_rescue[0]) == int((raw < MIN_ACCEPTED).sum()),
+        "finite_positive": bool(np.isfinite(raw).all() and (raw >= 0).all()),
+        "step_ms": round(step_ms, 3),
+    }
+    if not all(row[k] for k in ("equal_unsharded_card", "equal_plain",
+                                "equal_runner", "best_ok", "n_rescue_ok",
+                                "finite_positive")):
+        raise AssertionError(f"sharded step {grid_name} {shape}: {row}")
+    return row
+
+
+def two_process_run(base, tmp, flags=(), timeout_s=900):
+    """The CLI in two processes (--num-processes 2, gloo over 127.0.0.1),
+    both on the same card, with the default --pairhmm cuda -> (process
+    0's VCF path, its --stats, the pair's wall).  A child that fails or
+    runs past ``timeout_s`` fails the phase; both are killed then."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    outs = [os.path.join(tmp, f"chr20sim.mp{pid}.vcf") for pid in (0, 1)]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "gatk_hc_tpu_torch.cli", *base, *flags,
+             "-O", outs[pid], "--stats", "--num-processes", "2", "--process-id",
+             str(pid), "--coordinator", f"127.0.0.1:{port}"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+        for pid in (0, 1)
+    ]
+    texts = []
+    try:
+        for proc in procs:
+            remaining = max(1.0, timeout_s - (time.perf_counter() - t0))
+            stdout, _ = proc.communicate(timeout=remaining)
+            texts.append(stdout.decode(errors="replace"))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for pid, (proc, text) in enumerate(zip(procs, texts)):
+        if proc.returncode != 0:
+            raise RuntimeError(f"process {pid} exited {proc.returncode}:\n"
+                               f"{text[-3000:]}")
+    stats = json.loads(next(line for line in texts[0].splitlines()
+                            if line.startswith("{")))
+    return outs[0], stats, wall
+
+
+def phase_multi(tmp):
+    """The multi-device and multi-process paths on the one card: (a) the
+    sharded step on a 1x1 and a 2x2 grid of cuda:0 at the reference dryrun
+    shapes and at one full-width region tile, each bit-equal to the
+    unsharded forward, its plain version and the runner, and
+    dryrun_multichip(1); (b) chrM through --pairhmm shardmap (golden) and
+    the 2 Mb contig (identical to native); (c) the runner over two slots
+    of cuda:0 on the 2 Mb contig (identical to native, launch units
+    alternating 0, 1); (d) two CLI processes on the 2 Mb contig, gloo over
+    loopback (process 0's VCF identical to native, the merged stats over
+    all 8,164 regions).  Needs phase_contig's fixture and native VCF in
+    ``tmp``.  -> the ppe4 launches of the 2 Mb shardmap run."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch import entry
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.models.caller import call_batched
+    from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
+    from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
+    from gatk_hc_tpu_torch.parallel.sharded_step import make_mesh
+
+    cfg = DEFAULT_CONFIG
+    rng = np.random.default_rng(11)
+    rows = []
+    for name, hap_parallel, n in (("1x1", 1, 1), ("2x2", 2, 4)):
+        grid = make_mesh(n, hap_parallel=hap_parallel,
+                         devices=["cuda:0"] * n)
+        data = n // hap_parallel
+        # the reference dryrun: 4 reads per data slot, 2 haps per hap
+        # slot, r_pad 16, c_pad 128; then one full-width region tile
+        for (nr, nh, rlen, hlen), shape in (
+                ((4 * data, 2 * hap_parallel, 14, 120), (16, 128)),
+                ((96, 16, 151, 415), (160, 448))):
+            reads, haps = region_tile(rng, nr, nh, rlen, hlen)
+            rows.append(sharded_check(name, grid, shape, reads, haps, cfg))
+    with contextlib.redirect_stdout(io.StringIO()):
+        dry = entry.dryrun_multichip(1)
+    emit({"phase": "multi_sharded_step", "checks": rows, "dryrun": dry})
+
+    fixtures = os.path.join(ROOT, "fixtures")
+    with open(os.path.join(fixtures, "chrM.golden.vcf"), "rb") as handle:
+        golden = handle.read()
+    out = os.path.join(tmp, "chrM.shardmap.vcf")
+    stats = run_cli(["-I", os.path.join(fixtures, "chrM.sam"),
+                     "-R", os.path.join(fixtures, "chrM.fa"), "-O", out,
+                     "--pairhmm", "shardmap"])
+    with open(out, "rb") as handle:
+        chrm_ok = handle.read() == golden
+    chrm = {"golden_identical": chrm_ok, "wall_s": stats["wall_s"],
+            "launches": {k: n for k, n in stats["launches"].items() if n}}
+    if not chrm_ok or set(chrm["launches"]) != {"ppe4"}:
+        raise AssertionError(f"chrM --pairhmm shardmap: {chrm}")
+
+    fix = os.path.join(tmp, "chr20sim")
+    base = ["-I", os.path.join(fix, "chr20sim.sam"),
+            "-R", os.path.join(fix, "chr20sim.fa")]
+    with open(os.path.join(tmp, "chr20sim.native.vcf"), "rb") as handle:
+        native = handle.read()
+
+    def same_as_native(path):
+        with open(path, "rb") as handle:
+            return handle.read() == native
+
+    torch.cuda.reset_peak_memory_stats()
+    vcf = os.path.join(tmp, "chr20sim.shardmap.vcf")
+    stats = run_cli(base + ["-O", vcf, "--pairhmm", "shardmap"])
+    shardmap = {
+        "identical_to_native": same_as_native(vcf),
+        "wall_s": stats["wall_s"], "regions": stats["regions"],
+        "kernel_launches": stats.get("kernel_launches"),
+        "launches": {k: n for k, n in stats["launches"].items() if n},
+        "stages": stats["stages"], "peak_rss_mb": stats.get("peak_rss_mb"),
+        "cuda_max_memory_allocated_mb": round(
+            torch.cuda.max_memory_allocated() / 2**20, 1),
+    }
+    if (not shardmap["identical_to_native"]
+            or set(shardmap["launches"]) != {"ppe4"}):
+        raise AssertionError(f"2 Mb --pairhmm shardmap: {shardmap}")
+
+    torch.cuda.reset_peak_memory_stats()
+    runner = TorchPairHMMRunner(cfg, devices=["cuda:0", "cuda:0"])
+    vcf = os.path.join(tmp, "chr20sim.two_slots.vcf")
+    pt.reset_launches()
+    t0 = time.perf_counter()
+    call_batched(base[1], base[3], vcf, cfg, runner=runner)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in pt.LAUNCHES.items() if n}
+    placements = runner.placements
+    two_slots = {
+        "identical_to_native": same_as_native(vcf), "wall_s": round(wall, 3),
+        "launch_units": len(placements),
+        "alternating": placements == [i % 2 for i in range(len(placements))],
+        "per_slot": [placements.count(0), placements.count(1)],
+        "launches": launches, "dispatch_profile": dict(runner.dispatch_counts),
+        "cuda_max_memory_allocated_mb": round(
+            torch.cuda.max_memory_allocated() / 2**20, 1),
+    }
+    if not (two_slots["identical_to_native"] and two_slots["alternating"]
+            and len(placements) >= 2 and launches.get("ppe4")):
+        raise AssertionError(f"2 Mb runner over two slots: {two_slots}")
+
+    vcf, stats, wall = two_process_run(base, tmp)
+    cluster = stats.get("cluster") or {}
+    two_process = {
+        "identical_to_native": same_as_native(vcf), "pair_wall_s":
+        round(wall, 3), "process0_wall_s": stats["wall_s"],
+        "process0_regions": stats["regions"],
+        "processes": cluster.get("processes"),
+        "merged_regions": (cluster.get("counters") or {}).get("regions"),
+        "timers_max": cluster.get("timers_max"),
+        "process0_kernel_launches": stats.get("kernel_launches"),
+        "process0_cuda_max_memory_allocated_mb":
+        stats.get("cuda_max_memory_allocated_mb"),
+    }
+    if not (two_process["identical_to_native"]
+            and two_process["processes"] == 2
+            and two_process["merged_regions"] == 8164
+            > two_process["process0_regions"]):
+        raise AssertionError(f"2 Mb in two processes: {two_process}")
+    emit({"phase": "multi_paths", "chrM_shardmap": chrm,
+          "contig_shardmap": shardmap, "contig_two_slots": two_slots,
+          "contig_two_processes": two_process})
+    return shardmap["launches"]["ppe4"]
+
+
 def main() -> int:
     import torch
 
@@ -1214,6 +1475,7 @@ def main() -> int:
         f32_launches, f32_tiles = phase_chrm_engines(tmp)
         chrm_launches.update(f32_launches)
         contig_launches, contig_tiles = phase_contig(tmp)
+        phase_multi(tmp)
     # the genotype kernel at the tiles its main-path runs gave it: the
     # kernels line reports each instance at its run's most common shape
     main_tiles = {

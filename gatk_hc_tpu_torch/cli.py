@@ -9,14 +9,19 @@ checkpoint/resume manifests, and assembly-graph dumps.  The PairHMM runs on
 the CUDA card by default (--pairhmm cuda --device cuda) through the ppe
 kernel, or the striped kernel with --pallas-algo striped; --pairhmm diag
 runs the anti-diagonal forward in PyTorch ops, --pairhmm native the C++
-engine, and --pairhmm auto picks native or cuda by the SAM's size on the
-card (always native with --device cpu).
+engine, --pairhmm shardmap splits each region's pair grid over a (data,
+hap) grid of the visible cards (the same kernels per block), and --pairhmm
+auto picks native or cuda by the SAM's size on the card (always native
+with --device cpu).
 --genotyper cuda runs the genotype reductions through the CUDA genotype
 kernel (f64) instead of on the host.  --device cpu runs cuda, diag and the
 cuda genotyper through the plain PyTorch versions of their kernels.  The
 dispatch flags (--dispatch-mode, --no-packed-nib, --fuse-groups,
 --no-fuse-auto, --device-timeout) choose how groups are shipped and
-launched; every choice gives the same VCF.
+launched; every choice gives the same VCF.  --num-processes N
+--process-id I --coordinator HOST:PORT run one of N processes, each calling
+its own block of regions on the cards it sees, joined by a gloo process
+group; process 0 writes the VCF.
 """
 
 from __future__ import annotations
@@ -45,19 +50,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--pairhmm",
         default=DEFAULT_CONFIG.pairhmm_engine,
-        choices=("auto", "cuda", "diag", "native", "python"),
+        choices=("auto", "cuda", "diag", "native", "python", "shardmap"),
         help="PairHMM engine (default: %(default)s; cuda = the hand-written "
         "CUDA kernel through the batched runner, diag = the anti-diagonal "
         "forward in PyTorch ops, one call per region, native = the C++ "
-        "host engine, python = the NumPy oracle, auto = native for a SAM "
+        "host engine, python = the NumPy oracle, shardmap = each region's "
+        "pair grid split over a (data, hap) grid of the visible cards, the "
+        "same kernels per block, auto = native for a SAM "
         "under the size where the card wins end to end, cuda otherwise; "
         "native with --device cpu — bit-exact either way)",
     )
     parser.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
-        help="where --pairhmm cuda / diag and --genotyper cuda run: the "
-        "card (default) or the CPU through the kernels' plain PyTorch "
-        "versions",
+        help="where --pairhmm cuda / diag / shardmap and --genotyper cuda "
+        "run: every visible card (default) or the CPU through the kernels' "
+        "plain PyTorch versions",
     )
     parser.add_argument(
         "--assembler",
@@ -157,6 +164,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--dump-graph", type=int, default=None, metavar="REGION",
         help="write graph.dot for the given region index and exit",
     )
+    # multi-process
+    parser.add_argument(
+        "--coordinator", default=None, metavar="HOST:PORT",
+        help="where process 0 listens for the others (gloo over TCP)",
+    )
+    parser.add_argument(
+        "--num-processes", type=int, default=None,
+        help="processes of the run, each calling its own block of regions",
+    )
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="this process's index, 0 .. N-1")
     return parser
 
 
@@ -191,6 +209,17 @@ def _dump_graph(args, cfg) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if not (args.num_processes and args.num_processes > 1):
+        return _run(args)
+    from .parallel.multihost import shutdown
+
+    try:
+        return _run(args)
+    finally:
+        shutdown()  # leave the process group, on errors too
+
+
+def _run(args) -> int:
     pairhmm = args.pairhmm
     if pairhmm == "auto":
         import os
@@ -260,8 +289,28 @@ def main(argv=None) -> int:
 
     start = time.perf_counter()
     runner = None
+    multi = bool(args.num_processes and args.num_processes > 1)
     try:
-        if cfg.pairhmm_engine in ("cuda", "diag", "native"):
+        if multi:
+            from .parallel.multihost import run_multihost
+
+            if cfg.pairhmm_engine == "cuda":
+                from .ops.runner import BackgroundRunner
+
+                # each process drives the cards it sees
+                runner = BackgroundRunner(cfg, device=args.device)
+            try:
+                results, _merged = run_multihost(
+                    args.input, args.reference, args.output, cfg,
+                    args.coordinator, args.num_processes, args.process_id,
+                    logger=logger, timers=timers, counters=counters,
+                    manifest_path=args.manifest, region_filter=region_filter,
+                    runner=runner, device=args.device,
+                )
+            finally:
+                if runner is not None:
+                    runner.stop_prewarm()
+        elif cfg.pairhmm_engine in ("cuda", "diag", "native", "shardmap"):
             # all run the cross-region batched pipeline (same grouping +
             # columnar data path); "python" stays on the simple per-region
             # oracle pipeline
@@ -367,7 +416,17 @@ def main(argv=None) -> int:
                 }
         except Exception:
             pass
-        print(json.dumps(stats))
+        if multi:
+            # collective: every process takes part; process 0 prints the
+            # merged cross-process stats beside its own
+            from .parallel.multihost import gather_stats, process_index
+
+            merged = gather_stats(counters, timers)
+            if process_index() == 0:
+                stats["cluster"] = merged
+                print(json.dumps(stats))
+        else:
+            print(json.dumps(stats))
     print(f"HaplotypeCaller done. {n_variants} variants in {elapsed:.2f}s")
     return 0
 

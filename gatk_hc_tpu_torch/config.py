@@ -114,6 +114,9 @@ class HCConfig:
     #         runner (ops/runner.py::TorchPairHMMRunner);
     # "diag": the anti-diagonal forward in PyTorch ops, one call per region
     #         (ops/pairhmm_diag.py; the kernels' independent cross-check);
+    # "shardmap": each region's pair grid split over a (data, hap) grid of
+    #         devices, the same kernels per block
+    #         (parallel/sharded_step.py::ShardMapPairHMMRunner);
     # "native": C++ host engine;  "python": slow exact reference oracle.
     # All engines are bit-exact, so the choice never changes the VCF
     # (the CLI's --pairhmm auto resolves to "native" or "cuda" by input

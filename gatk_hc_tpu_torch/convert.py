@@ -26,12 +26,12 @@ from .ops.pairhmm_torch import TABLE_KEYS, plane_tables
 TPU_ONLY_KEYS = ("pair_batch",)
 
 # Reference engine names -> the port's.  "pallas" is the device kernel
-# engine on either side, "jax" the anti-diagonal jnp engine ("diag" here);
-# "shardmap" and "auto" (a CLI choice, resolved before a config exists)
-# are not ported.  The reference's device genotyper "jax" is the port's
-# "cuda" genotyper.
+# engine on either side, "jax" the anti-diagonal jnp engine ("diag" here),
+# "shardmap" the sharded step over a device grid on both; "auto" (a CLI
+# choice, resolved before a config exists) is not ported.  The reference's
+# device genotyper "jax" is the port's "cuda" genotyper.
 _ENGINES = {"pallas": "cuda", "jax": "diag", "native": "native",
-            "python": "python"}
+            "python": "python", "shardmap": "shardmap"}
 _GENOTYPERS = {"host": "host", "jax": "cuda"}
 
 

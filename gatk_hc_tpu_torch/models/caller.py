@@ -244,8 +244,8 @@ def call_batched(
     slices found by a single ranged scan, and each contig's columns are
     freed once its last region is assembled (bounded memory for WGS).
 
-    ``device`` is where the runner this builds for the "cuda" or "diag"
-    engine and the "cuda" genotyper run ("cuda" or "cpu"); it is not a
+    ``device`` is where the runner this builds for the "cuda", "diag" or
+    "shardmap" engine and the "cuda" genotyper run ("cuda" or "cpu"); it is not a
     config key."""
     from ..ops.engines import make_assemble_fn
     from ..ops.pairhmm_oracle import normalize_and_filter
@@ -267,6 +267,10 @@ def call_batched(
             from ..ops.runner import DiagPairHMMRunner
 
             runner = DiagPairHMMRunner(cfg, device=device)
+        elif cfg.pairhmm_engine == "shardmap":
+            from ..parallel.sharded_step import ShardMapPairHMMRunner
+
+            runner = ShardMapPairHMMRunner(cfg, device=device)
         else:
             raise ValueError(
                 f"pairhmm engine {cfg.pairhmm_engine!r} has no batched runner"

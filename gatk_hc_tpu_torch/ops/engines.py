@@ -7,6 +7,9 @@ Engines (HCConfig.pairhmm_engine):
   (production device path; ops/runner.py::TorchPairHMMRunner)
 * "diag"   — the anti-diagonal forward in PyTorch ops, padded per region
   (ops/pairhmm_diag.py; an independent cross-check of the kernels)
+* "shardmap" — each region's pair grid split over a (data, hap) grid of
+  devices, the same CUDA kernels per block
+  (parallel/sharded_step.py::ShardMapPairHMMRunner)
 
 All engines produce the same read-major log10 matrix; rescue (raw f32 result
 below MIN_ACCEPTED) always runs through the float64 host path.
@@ -47,8 +50,8 @@ def _to_arrays(reads: Sequence[SAMRecord], haps: Sequence[Haplotype]):
 
 
 def make_pairhmm_engine(cfg: HCConfig, device="cuda") -> Callable:
-    """The per-region engine of ``cfg.pairhmm_engine``; "cuda" and "diag"
-    run on ``device``."""
+    """The per-region engine of ``cfg.pairhmm_engine``; "cuda", "diag" and
+    "shardmap" run on ``device``."""
     name = cfg.pairhmm_engine
     if name == "python":
 
@@ -74,6 +77,10 @@ def make_pairhmm_engine(cfg: HCConfig, device="cuda") -> Callable:
         from .pairhmm_diag import diag_pairhmm_engine
 
         return diag_pairhmm_engine(cfg, device=device)
+    if name == "shardmap":
+        from ..parallel.sharded_step import shardmap_pairhmm_engine
+
+        return shardmap_pairhmm_engine(cfg, device=device)
     raise ValueError(f"unknown pairhmm engine {name!r}")
 
 

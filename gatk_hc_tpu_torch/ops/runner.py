@@ -27,6 +27,13 @@ separately would drown in per-launch overhead.  ``TorchPairHMMRunner``:
    while a fresh probe of the card cannot finish either raises
    ``DeviceWedgedError``: the card's work is never handed to the CPU.
 
+Several devices (every visible card by default, or an explicit list that
+may repeat a device): each launch unit (a group, k fused groups, or a
+group's chunks) goes to the next slot in turn, on that slot's own stream;
+the one FIFO worker keeps the placement order that of a synchronous submit,
+and ``drain`` reads each slot's results back once per submit.  Units are
+independent, so placement never changes a result.
+
 ``BackgroundRunner`` builds the kernels, the CUDA context and the runner on
 a thread that overlaps the host's parse and assembly, then launches each
 kernel instance once on a tiny input.
@@ -45,7 +52,7 @@ import statistics
 import sys
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import ExitStack, nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,7 +65,7 @@ from ..utils.quality import INITIAL_CONSTANT_F32
 ReadArray = Tuple[np.ndarray, np.ndarray]  # (bases u8, quals u8)
 
 # "submit" is the caller's time inside submit(), per submit; "d2h" is per
-# submit; the others are per launch unit (a group, or k fused groups),
+# submit and slot; the others are per launch unit (a group, or k fused groups),
 # "pack" per group; "gather" is the striped path's table and pair gathers
 # (the ppe paths have no stage between H2D and kernel)
 STAGES = ("submit", "pack", "h2d", "gather", "kernel", "d2h", "finalize")
@@ -407,6 +414,7 @@ class _Entry:
     chunks: List[Tuple[_Stamp, _Stamp]]  # per launch: start, end
     outs: Optional[List[torch.Tensor]]  # the launches' results (until D2H)
     keep: object  # the host buffer, alive until the batch is drained
+    slot: int = 0  # the runner's slot it ran on
     start: int = 0  # offset in the submit's output
     # the striped path's gathers before each launch: start, end
     gathers: List[Tuple[_Stamp, _Stamp]] = dataclasses.field(
@@ -418,7 +426,56 @@ class _Batch:
     jobs: Sequence[PairHMMJob]
     entries: List[_Entry]
     host_out: torch.Tensor  # (n_pairs,) f32, pinned on the CUDA path
-    d2h: Optional[Tuple[_Stamp, _Stamp]]
+    d2h: List[Tuple[_Stamp, _Stamp]]  # one copy per slot used (CUDA)
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One place launch units go: a device, its own stream (None on the
+    CPU) and the device's tables."""
+
+    index: int
+    device: torch.device
+    stream: Optional["torch.cuda.Stream"]
+    ppe_tab: torch.Tensor  # the 768-entry table the ppe kernel reads
+    striped_tabs: Optional[Tuple[torch.Tensor, ...]]  # striped path only
+
+    def active(self):
+        """The slot's device and stream made current (nothing on the
+        CPU)."""
+        if self.stream is None:
+            return nullcontext()
+        stack = ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
+
+
+def local_devices(device="cuda", devices=None) -> List[torch.device]:
+    """The devices a runner spreads its work over: ``devices`` as given (a
+    device may repeat), else ``device``; "cuda" without an index means
+    every visible card.  Raises when a CUDA device is asked for and no card
+    is visible, and on a mix of CPU and CUDA devices."""
+    if devices is not None:
+        out = [torch.device(d) for d in devices]
+        if not out:
+            raise ValueError("devices must name at least one device")
+    else:
+        out = [torch.device(device)]
+    types = {d.type for d in out}
+    if not types <= {"cuda", "cpu"} or len(types) > 1:
+        raise ValueError(f"unsupported devices {[str(d) for d in out]}")
+    if "cuda" in types:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "gatk_hc_tpu_torch: no CUDA device is available (pass "
+                "device='cpu' to run the kernels' plain versions)")
+        if devices is None and out[0].index is None:
+            out = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        out = [torch.device("cuda", torch.cuda.current_device())
+               if d.index is None else d for d in out]
+    return out
 
 
 # fused-launch labels per path, as the reference's dispatch_profile
@@ -454,13 +511,16 @@ def segments_of(payloads: Sequence[_Payload], views):
 
 
 class TorchPairHMMRunner:
-    """Batches PairHMMJobs into PairHMM kernel launches on one device: the
-    ppe kernel, or the striped one when cfg.pallas_algo is "striped".
+    """Batches PairHMMJobs into PairHMM kernel launches: the ppe kernel, or
+    the striped one when cfg.pallas_algo is "striped".
 
-    ``device`` is "cuda" (the default: the CUDA kernels; raises when no card
-    is visible) or "cpu" (the same worker, packing and finalize around
-    the kernels' plain PyTorch versions — what the tests run).
-    ``tables`` replaces the numeric tables (ops/pairhmm_torch.py::
+    ``device`` is "cuda" (the default: the CUDA kernels on every visible
+    card; raises when none is) or "cpu" (the same worker, packing and
+    finalize around the kernels' plain PyTorch versions — what the tests
+    run).  ``devices`` lists the slots explicitly instead (``local_devices``;
+    e.g. ``["cpu"] * 8``, or ``["cuda:0", "cuda:0"]``): launch units go to
+    them round-robin, and ``placements`` records the slot of each in launch
+    order.  ``tables`` replaces the numeric tables (ops/pairhmm_torch.py::
     make_tables layout, e.g. from convert.tables_from_reference)."""
 
     # Grouping limits.  One group is one launch unless a single job
@@ -481,22 +541,13 @@ class TorchPairHMMRunner:
     MAX_SLOW_EXTENSIONS = 3
 
     def __init__(self, cfg: HCConfig, device="cuda",
-                 pair_budget: Optional[int] = None, tables=None):
+                 pair_budget: Optional[int] = None, tables=None,
+                 devices=None):
         from .pairhmm_torch import make_tables
 
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchPairHMMRunner: no CUDA device is available "
-                    "(pass device='cpu' to run the kernel's plain version)"
-                )
-            self._stream = torch.cuda.Stream(self.device)
-        elif self.device.type == "cpu":
-            self._stream = None
-        else:
-            raise ValueError(f"unsupported device {self.device}")
-        self._pinned = self._stream is not None
+        self.devices = local_devices(device, devices)
+        self.device = self.devices[0]
+        self._pinned = self.device.type == "cuda"
         self.cfg = cfg
         if tables is None:
             tables = make_tables(cfg, "cpu")
@@ -505,21 +556,34 @@ class TorchPairHMMRunner:
         self._omq_bits_tab = host["omq_bits"]
         self._q3_bits_tab = host["q3_bits"]
         self.trans = tuple(np.float32(t) for t in host["trans"])
+        self.striped = cfg.pallas_algo == "striped"
         # the 768-entry combined table the ppe kernel reads packed and nib
         # bytes through (ppe_element_table layout: the three plane tables
-        # end to end)
-        self._ppe_tab = torch.from_numpy(np.concatenate(
+        # end to end); the striped path's byte -> code, Phred -> 1 - q and
+        # Phred -> q / 3 tables; both once per device
+        ppe_tab = np.concatenate(
             [self._mask_tab, self._omq_bits_tab, self._q3_bits_tab]
-        ).astype(np.int32)).to(self.device)
-        self.striped = cfg.pallas_algo == "striped"
+        ).astype(np.int32)
+        striped_host = None
         if self.striped:
             from .pairhmm_striped import striped_tables
 
-            # byte -> code, Phred -> 1 - q, Phred -> q / 3, on the device
-            self._striped_tabs = tuple(
-                torch.from_numpy(t).to(self.device)
-                for t in striped_tables(host["base_table"], host["ph2pr"])
-            )
+            striped_host = striped_tables(host["base_table"], host["ph2pr"])
+        per_device: Dict[torch.device, tuple] = {}
+        self._slots: List[_Slot] = []
+        for index, dev in enumerate(self.devices):
+            if dev not in per_device:
+                per_device[dev] = (
+                    torch.from_numpy(ppe_tab).to(dev),
+                    None if striped_host is None else tuple(
+                        torch.from_numpy(t).to(dev) for t in striped_host),
+                )
+            stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+            self._slots.append(_Slot(index, dev, stream, *per_device[dev]))
+        self._ppe_tab = self._slots[0].ppe_tab
+        self._next_slot = 0
+        # the slot of every launch unit, in launch order (all submits)
+        self.placements: List[int] = []
         self.pair_budget = pair_budget or self.GROUP_PAIRS
         self._path_ctl = DispatchPathController(
             forced=None if cfg.dispatch_mode == "adaptive" else cfg.dispatch_mode
@@ -568,47 +632,63 @@ class TorchPairHMMRunner:
             self.init_profile["first_submit_at_age_s"] = round(
                 _process_age_s(), 3)
             t_first = time.perf_counter()
-        stream = self._stream
-        # the current stream is per thread: the worker enters it itself
-        with torch.cuda.stream(stream) if stream is not None else nullcontext():
-            groups = self._plan_groups(jobs)
-            # fuse_auto: fusion engages on the controller's measured DEEP
-            # degradation (DispatchPathController.deeply_degraded), not
-            # statically (HCConfig.fuse_auto)
-            fuse_on = self.cfg.fuse_groups > 1 and (
-                not self.cfg.fuse_auto or self._path_ctl.deeply_degraded()
-            )
-            sink: Optional[List[_Payload]] = [] if fuse_on else None
-            entries: List[_Entry] = []
-            for group in groups:
-                entry = self._submit_group(jobs, group, sink)
-                if entry is not None:
-                    entries.append(entry)
-            if sink:
-                entries.extend(self._dispatch_fused(sink))
-            outs: List[torch.Tensor] = []
-            start = 0
-            for entry in entries:
-                entry.start = start
-                start += entry.total
-                outs.extend(entry.outs)
-                entry.outs = None
-            if not outs:
-                batch = _Batch(jobs, entries, torch.zeros(0), None)
-            else:
-                dev_out = outs[0] if len(outs) == 1 else torch.cat(outs)
-                if stream is None:
-                    batch = _Batch(jobs, entries, dev_out, None)
-                else:
-                    host_out = torch.empty(dev_out.shape, dtype=torch.float32,
-                                           pin_memory=True)
-                    d0 = _Stamp(stream)
-                    host_out.copy_(dev_out, non_blocking=True)
-                    batch = _Batch(jobs, entries, host_out, (d0, _Stamp(stream)))
+        groups = self._plan_groups(jobs)
+        # fuse_auto: fusion engages on the controller's measured DEEP
+        # degradation (DispatchPathController.deeply_degraded), not
+        # statically (HCConfig.fuse_auto)
+        fuse_on = self.cfg.fuse_groups > 1 and (
+            not self.cfg.fuse_auto or self._path_ctl.deeply_degraded()
+        )
+        sink: Optional[List[_Payload]] = [] if fuse_on else None
+        entries: List[_Entry] = []
+        for group in groups:
+            entry = self._submit_group(jobs, group, sink)
+            if entry is not None:
+                entries.append(entry)
+        if sink:
+            entries.extend(self._dispatch_fused(sink))
+        batch = self._read_back(jobs, entries)
         if first:
             self.init_profile["first_submit_batch_s"] = round(
                 time.perf_counter() - t_first, 3)
         return batch
+
+    def _read_back(self, jobs, entries: List[_Entry]) -> _Batch:
+        """The submit's output laid out slot by slot (launch order within
+        a slot): on the CPU one tensor, on CUDA one pinned host buffer that
+        each slot fills with one copy on its own stream."""
+        by_slot: Dict[int, List[_Entry]] = {}
+        for entry in entries:
+            by_slot.setdefault(entry.slot, []).append(entry)
+        outs: Dict[int, List[torch.Tensor]] = {}
+        start = 0
+        for index in sorted(by_slot):
+            outs[index] = []
+            for entry in by_slot[index]:
+                entry.start = start
+                start += entry.total
+                outs[index].extend(entry.outs)
+                entry.outs = None
+        if not start:
+            return _Batch(jobs, entries, torch.zeros(0), [])
+        if not self._pinned:
+            flat = [o for index in sorted(outs) for o in outs[index]]
+            return _Batch(jobs, entries,
+                          flat[0] if len(flat) == 1 else torch.cat(flat), [])
+        host_out = torch.empty(start, dtype=torch.float32, pin_memory=True)
+        d2h = []
+        at = 0
+        for index in sorted(outs):
+            slot = self._slots[index]
+            with slot.active():
+                parts = outs[index]
+                dev_out = parts[0] if len(parts) == 1 else torch.cat(parts)
+                d0 = _Stamp(slot.stream)
+                host_out[at : at + dev_out.numel()].copy_(dev_out,
+                                                         non_blocking=True)
+                d2h.append((d0, _Stamp(slot.stream)))
+            at += dev_out.numel()
+        return _Batch(jobs, entries, host_out, d2h)
 
     def drain(self, batches) -> None:
         """Wait for each submitted batch's transfer back, then finalize its
@@ -635,8 +715,8 @@ class TorchPairHMMRunner:
             self.init_profile["first_drain_fetch_s"] = round(
                 time.perf_counter() - t_fetch, 3)
         for batch in resolved:
-            if batch.d2h is not None:
-                self.stage_ms["d2h"].append(batch.d2h[0].ms_until(batch.d2h[1]))
+            for d0, d1 in batch.d2h:
+                self.stage_ms["d2h"].append(d0.ms_until(d1))
             probs = batch.host_out.numpy()
             for e in batch.entries:
                 t0 = time.perf_counter()
@@ -667,8 +747,8 @@ class TorchPairHMMRunner:
     @staticmethod
     def _sync_d2h(batches: Sequence[_Batch]) -> None:
         for b in batches:
-            if b.d2h is not None:
-                b.d2h[1].event.synchronize()
+            for _d0, d1 in b.d2h:
+                d1.event.synchronize()
 
     def _wait(self, fut: _WorkerFuture, where: str, timeout: Optional[float]):
         """fut's result within the wedge budget.  A card that is alive but
@@ -690,27 +770,33 @@ class TorchPairHMMRunner:
 
     def _raise_if_wedged(self) -> None:
         if self._wedged:
+            probed = ", ".join(str(d) for d in dict.fromkeys(self.devices))
             raise DeviceWedgedError(
                 f"gatk_hc_tpu_torch: device {self._wedged} unresponsive: "
                 f"nothing within {self.cfg.device_timeout_s:.0f}s and a fresh "
-                f"probe of {self.device} failed, or {self.MAX_SLOW_EXTENSIONS}"
+                f"probe of {probed} failed, or {self.MAX_SLOW_EXTENSIONS}"
                 " more budgets ran out; the card's work is not moved to the "
                 "CPU (rerun, or --pairhmm native)")
 
     def _probe_device_alive(self, timeout_s: float = 30.0) -> bool:
-        """One tiny H2D + D2H round trip on a fresh daemon thread and a
-        fresh stream: True means the card is alive (merely slow); False
-        (the probe itself cannot finish) confirms a wedge.  A fresh thread
-        each time: the dispatch and fetch workers may be the blocked ones."""
+        """One tiny H2D + D2H round trip per device on a fresh daemon
+        thread and fresh streams: True means every card is alive (merely
+        slow); False (a probe cannot finish) confirms a wedge.  A fresh
+        thread each time: the dispatch and fetch workers may be the blocked
+        ones."""
         ok = threading.Event()
 
         def probe():
             try:
-                x = torch.ones(8)
-                if self._stream is not None:
-                    with torch.cuda.stream(torch.cuda.Stream(self.device)):
-                        x = x.to(self.device).cpu()
-                if bool(x.sum() == 8):
+                alive = True
+                for dev in dict.fromkeys(self.devices):
+                    x = torch.ones(8)
+                    if dev.type == "cuda":
+                        with torch.cuda.device(dev), torch.cuda.stream(
+                                torch.cuda.Stream(dev)):
+                            x = x.to(dev).cpu()
+                    alive = alive and bool(x.sum() == 8)
+                if alive:
                     ok.set()
             except Exception:  # noqa: BLE001 - an erroring probe after a
                 pass  # timeout is as good as a wedged one
@@ -763,16 +849,22 @@ class TorchPairHMMRunner:
                       for r in self.cfg.read_pad_buckets]
 
         def work():
-            if self._stream is None:
+            if not self._pinned:
                 return  # the plain versions load nothing
             try:
                 n = 0
-                with torch.cuda.stream(self._stream):
-                    for r_pad, c_pad in shapes:
-                        if self._prewarm_stop.is_set():
-                            break
-                        n += self._warm(self._round_rows(r_pad), c_pad)
-                    self._stream.synchronize()
+                # a kernel loads once per device: warm the first slot of each
+                firsts = {}
+                for slot in self._slots:
+                    firsts.setdefault(slot.device, slot)
+                for slot in firsts.values():
+                    with slot.active():
+                        for r_pad, c_pad in shapes:
+                            if self._prewarm_stop.is_set():
+                                break
+                            n += self._warm(slot, self._round_rows(r_pad),
+                                            c_pad)
+                    slot.stream.synchronize()
                 self.init_profile["prewarm_launches"] = n
             except Exception as exc:  # noqa: BLE001 - raised at next submit
                 self._prewarm_exc = exc
@@ -791,10 +883,10 @@ class TorchPairHMMRunner:
         pipeline has drained — further warming is pure exit latency)."""
         self._prewarm_stop.set()
 
-    def _warm(self, r_pad: int, c_pad: int) -> int:
-        """One uncounted launch of each kernel instance the shape uses, on
-        one pair -> the number of launches."""
-        dev = self.device
+    def _warm(self, slot: _Slot, r_pad: int, c_pad: int) -> int:
+        """One uncounted launch on ``slot`` of each kernel instance the
+        shape uses, on one pair -> the number of launches."""
+        dev = slot.device
         ones = torch.ones(1, dtype=torch.int32, device=dev)
         init_y = torch.ones(1, dtype=torch.float32, device=dev)
         if self.striped:
@@ -815,13 +907,22 @@ class TorchPairHMMRunner:
         pairs = torch.zeros(2, dtype=torch.int32, device=dev)
         launch_ppe_unique("packed", [Segment((u8, lens, pairs),
                                              (1, 1, r_pad, c_pad), 1)],
-                          self._ppe_tab, self.trans, self.cfg.ppe_rows)
+                          slot.ppe_tab, self.trans, self.cfg.ppe_rows)
         return 1
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:
-        if self._stream is not None:
-            self._stream.synchronize()
+        for slot in self._slots:
+            if slot.stream is not None:
+                slot.stream.synchronize()
+
+    def _take_slot(self) -> _Slot:
+        """The slot of the next launch unit (round-robin), recorded in
+        ``placements``."""
+        slot = self._slots[self._next_slot % len(self._slots)]
+        self._next_slot += 1
+        self.placements.append(slot.index)
+        return slot
 
     def _round_rows(self, r: int) -> int:
         # striped: a multiple of the stripe height, which then divides r_pad
@@ -1112,7 +1213,6 @@ class TorchPairHMMRunner:
         k = len(payloads)
         label = path if k == 1 else _FUSE_LABEL[path] + str(k)
         self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
-        stream = self._stream
         if k == 1:
             buf, pack_ms = payloads[0].buf, [payloads[0].pack_ms]
         else:
@@ -1120,17 +1220,22 @@ class TorchPairHMMRunner:
             buf = join_payloads(payloads, self._pinned)
             share = (time.perf_counter() - t0) * 1e3 / k
             pack_ms = [p.pack_ms + share for p in payloads]
-        h0 = _Stamp(stream)
-        views = buf.ship(self.device)
-        h1 = _Stamp(stream)
         spans, off = [], 0
         for p in payloads:
             spans.extend((g, off + s, nr, nh) for g, s, nr, nh in p.spans)
             off += p.total
-        res = ppe_forward_unique(_FRONT[path], segments_of(payloads, views),
-                                 self._ppe_tab, self.trans, self.cfg.ppe_rows)
-        return _Entry(spans, off, pack_ms, (h0, h1), [(h1, _Stamp(stream))],
-                      [res], buf)
+        slot = self._take_slot()
+        stream = slot.stream
+        with slot.active():
+            h0 = _Stamp(stream)
+            views = buf.ship(slot.device)
+            h1 = _Stamp(stream)
+            res = ppe_forward_unique(
+                _FRONT[path], segments_of(payloads, views), slot.ppe_tab,
+                self.trans, self.cfg.ppe_rows)
+            k1 = _Stamp(stream)
+        return _Entry(spans, off, pack_ms, (h0, h1), [(h1, k1)], [res], buf,
+                      slot=slot.index)
 
     def _launch_chunks(self, p: _Payload) -> _Entry:
         """A group of several chunks (one oversized job): one H2D copy,
@@ -1139,22 +1244,26 @@ class TorchPairHMMRunner:
         "packed-split")."""
         from .pairhmm_front import Segment, ppe_forward_unique
 
-        stream = self._stream
-        h0 = _Stamp(stream)
-        views = tuple(p.buf.ship(self.device))
-        h1 = _Stamp(stream)
+        slot = self._take_slot()
+        stream = slot.stream
         label = "planes" if p.path == "planes" else "packed-split"
         outs, chunks = [], []
-        for off in range(0, p.total, self.pair_budget):
-            size = min(self.pair_budget, p.total - off)
-            k0 = _Stamp(stream)
-            outs.append(ppe_forward_unique(
-                _FRONT[p.path], [Segment(views, p.dims, p.total, off, size)],
-                self._ppe_tab, self.trans, self.cfg.ppe_rows))
-            chunks.append((k0, _Stamp(stream)))
-            self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
+        with slot.active():
+            h0 = _Stamp(stream)
+            views = tuple(p.buf.ship(slot.device))
+            h1 = _Stamp(stream)
+            for off in range(0, p.total, self.pair_budget):
+                size = min(self.pair_budget, p.total - off)
+                k0 = _Stamp(stream)
+                outs.append(ppe_forward_unique(
+                    _FRONT[p.path],
+                    [Segment(views, p.dims, p.total, off, size)],
+                    slot.ppe_tab, self.trans, self.cfg.ppe_rows))
+                chunks.append((k0, _Stamp(stream)))
+                self.dispatch_counts[label] = (
+                    self.dispatch_counts.get(label, 0) + 1)
         return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
-                      p.buf)
+                      p.buf, slot=slot.index)
 
     def _dispatch_fused(self, payloads: List[_Payload]) -> List[_Entry]:
         """Launch deferred single-chunk groups, fusing up to
@@ -1180,31 +1289,33 @@ class TorchPairHMMRunner:
             gather_pairs_striped, prepare_tables_striped, striped_forward,
         )
 
-        stream = self._stream
-        h0 = _Stamp(stream)
-        views = p.buf.ship(self.device)
-        h1 = _Stamp(stream)
-        pairs = views[2].view(2, p.total)
-        tables = None
+        slot = self._take_slot()
+        stream = slot.stream
         outs, chunks, gathers = [], [], []
-        for off in range(0, p.total, self.pair_budget):
-            size = min(self.pair_budget, p.total - off)
-            s0 = _Stamp(stream)
-            if tables is None:  # once per group, timed with the gather
-                tables = prepare_tables_striped(
-                    views[0], views[1], *self._striped_tabs, *p.dims)
-            args = gather_pairs_striped(*tables, pairs[:, off : off + size])
-            s1 = _Stamp(stream)
-            outs.append(
-                striped_forward(*args, self.trans, self.cfg.stripe_height)
-            )
-            gathers.append((s0, s1))
-            chunks.append((s1, _Stamp(stream)))
-            self.dispatch_counts["striped"] = (
-                self.dispatch_counts.get("striped", 0) + 1
-            )
+        with slot.active():
+            h0 = _Stamp(stream)
+            views = p.buf.ship(slot.device)
+            h1 = _Stamp(stream)
+            pairs = views[2].view(2, p.total)
+            tables = None
+            for off in range(0, p.total, self.pair_budget):
+                size = min(self.pair_budget, p.total - off)
+                s0 = _Stamp(stream)
+                if tables is None:  # once per group, timed with the gather
+                    tables = prepare_tables_striped(
+                        views[0], views[1], *slot.striped_tabs, *p.dims)
+                args = gather_pairs_striped(*tables, pairs[:, off : off + size])
+                s1 = _Stamp(stream)
+                outs.append(
+                    striped_forward(*args, self.trans, self.cfg.stripe_height)
+                )
+                gathers.append((s0, s1))
+                chunks.append((s1, _Stamp(stream)))
+                self.dispatch_counts["striped"] = (
+                    self.dispatch_counts.get("striped", 0) + 1
+                )
         return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
-                      p.buf, gathers=gathers)
+                      p.buf, slot=slot.index, gathers=gathers)
 
     def _build_planes(self, read_u8, qual_u8, hap_u8, read_lens, hap_lens,
                       hap_init_y, nr_pad, nh_pad, r_pad, c_pad, out=None):
@@ -1274,7 +1385,7 @@ class BackgroundRunner:
     A build or CUDA error is stored and raised at first use; a build still
     running after cfg.device_timeout_s raises DeviceWedgedError there."""
 
-    def __init__(self, cfg: HCConfig, device="cuda"):
+    def __init__(self, cfg: HCConfig, device="cuda", devices=None):
         self.cfg = cfg
         self._runner = None
         self._exc: Optional[BaseException] = None
@@ -1283,7 +1394,8 @@ class BackgroundRunner:
         def build():
             try:
                 t0 = time.perf_counter()
-                runner = TorchPairHMMRunner(cfg, device=device)
+                runner = TorchPairHMMRunner(cfg, device=device,
+                                            devices=devices)
                 runner.init_profile["build_start_at_age_s"] = round(
                     _process_age_s() - (time.perf_counter() - t0), 3)
                 runner.init_profile["runner_ctor_s"] = round(

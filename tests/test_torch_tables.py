@@ -184,18 +184,20 @@ def test_config_from_reference_striped_runs_striped_kernel():
 
 
 def test_config_from_reference_rejects():
-    """Unknown keys raise; the engines the port has not ported (shardmap,
-    and auto, which the reference's CLI resolves before a config exists)
-    raise; the reference's "jax" engine and genotyper now map."""
+    """Unknown keys raise; the engine the port does not port (auto, which
+    the reference's CLI resolves before a config exists) raises; the
+    reference's "jax" and "shardmap" engines and its "jax" genotyper
+    map."""
     d = dataclasses.asdict(jax_config.DEFAULT_CONFIG)
     with pytest.raises(ValueError, match="unknown"):
         convert.config_from_reference({**d, "no_such_key": 1})
-    for engine in ("shardmap", "auto"):
+    for engine in ("auto",):
         with pytest.raises(NotImplementedError):
             convert.config_from_reference({**d, "pairhmm_engine": engine})
     with pytest.raises(NotImplementedError):
         convert.config_from_reference({**d, "genotyper_engine": "gpu"})
     convert.config_from_reference({**d, "pairhmm_engine": "jax"})
+    convert.config_from_reference({**d, "pairhmm_engine": "shardmap"})
     convert.config_from_reference({**d, "genotyper_engine": "jax"})
 
 
@@ -204,11 +206,12 @@ def test_config_from_reference_rejects():
     ("pallas", "jax", ("cuda", "cuda")),
     ("native", "jax", ("native", "cuda")),
     ("python", "host", ("python", "host")),
+    ("shardmap", "host", ("shardmap", "host")),
 ])
 def test_config_from_reference_maps_engines(engine, genotyper, want):
     """The reference's engine names -> the port's: pallas -> cuda (the
-    kernel engine), jax -> diag (the anti-diagonal engine), and the
-    device genotyper jax -> cuda."""
+    kernel engine), jax -> diag (the anti-diagonal engine), shardmap ->
+    shardmap (the sharded step), and the device genotyper jax -> cuda."""
     ref = dataclasses.replace(jax_config.DEFAULT_CONFIG, pairhmm_engine=engine,
                               genotyper_engine=genotyper)
     got = convert.config_from_reference(dataclasses.asdict(ref))
