@@ -29,7 +29,14 @@ and multi-process paths on the one card: the sharded step on a 1x1 and a
 and the runner), dryrun_multichip(1), --pairhmm shardmap on chrM (golden)
 and on the 2 Mb contig, the runner over two slots of cuda:0 and two CLI
 processes joined by gloo over loopback on the 2 Mb contig (each identical
-to native).
+to native).  Then the port's correctness tools (phase_tools): the
+differential fuzzer's eleven arms (python, native, streamed and
+multi-threaded host arms; cuda, cuda_striped, cuda_stream_mt, diag,
+shardmap on a 2x2 grid of the card, genotyper_cuda) on seven seeded
+genomes of 1-3 contigs, byte-identical per seed; a 4 x 500 kb fixture
+through --stream-contigs with the cuda runner, unstreamed and native
+(identical, with check_truth's sensitivity); and host_profile (the device
+stubbed out) on the 2 Mb contig beside the default run's stages.
 Every phase prints one JSON line and raises on failure.  The last lines are
 the card's name and power limit (nvidia-smi), one JSON object per kernel
 with its times, launches and bound, and ``{"ok": true, "device": ...}``.
@@ -1123,7 +1130,8 @@ def phase_contig(tmp):
     stages.genotype compare within one call, each VCF byte-identical to
     the port's native engine's.  -> (each kernel's launches in the first
     run of the path that drives it, the genotype tiles of the first
-    --genotyper cuda run: recording_genotype_tiles)."""
+    --genotyper cuda run: recording_genotype_tiles, the default runs'
+    walls and stages)."""
     import torch
 
     from gatk_hc_tpu_torch.tools import make_fixture
@@ -1197,7 +1205,9 @@ def phase_contig(tmp):
         "genotype_f64": runs["genotyper_cuda"][0]["launches"]["genotype_f64"],
         **{f"ppe_front_{path}": runs[path][0]["launches"][f"ppe_front_{path}"]
            for path in FRONTS},
-    }, record
+    }, record, {"regions": first["regions"],
+                "wall_s": [s["wall_s"] for s in runs["ppe4"]],
+                "stages": [s["stages"] for s in runs["ppe4"]]}
 
 
 def region_tile(rng, n_reads, n_haps, read_len, hap_len):
@@ -1455,6 +1465,139 @@ def phase_multi(tmp):
     return shardmap["launches"]["ppe4"]
 
 
+# fuzz seeds of the JAX package's draw (tools/fuzz_differential.py
+# run_seed), both profiles and 1-3 contigs: seed -> contig kb x contigs,
+# depth, profile: 1019 6x1 30x homopolymer, 1010 6x1 30x uniform, 1005
+# 6x2 30x homopolymer, 1100 6x2 30x uniform, 1028 6x2 8x homopolymer,
+# 1116 6x3 30x homopolymer, 1131 6x3 8x uniform.  The diag arm takes ~0.2
+# s a region on the card, most of the phase.
+FUZZ_SEEDS = (1019, 1010, 1005, 1100, 1028, 1116, 1131)
+# phase_tools' multi-contig fixture: 4 contigs of this length, 2,041
+# regions each
+CTG4_LENGTH = 500_000
+CTG4_REGIONS = 4 * 2041
+_PPE_ANY = {"ppe4", "ppe_front_planes", "ppe_front_packed", "ppe_front_nib"}
+# each device arm: the kernels it must launch on every seed, and the only
+# ones it may
+FUZZ_LAUNCHES = {
+    "cuda": ({"ppe4"}, _PPE_ANY),
+    "cuda_striped": ({"striped32"}, {"striped32"}),
+    "cuda_stream_mt": ({"ppe4"}, _PPE_ANY),
+    "diag": (set(), set()),
+    "shardmap": ({"ppe4"}, {"ppe4"}),
+    "genotyper_cuda": ({"ppe4", "genotype_f64"}, _PPE_ANY | {"genotype_f64"}),
+}
+
+
+def vcf_difference(a: bytes, b: bytes, n: int = 6):
+    """The first ``n`` lines of each VCF that the other lacks."""
+    la, lb = a.decode().splitlines(), b.decode().splitlines()
+    sa, sb = set(la), set(lb)
+    return ([x for x in la if x not in sb][:n], [x for x in lb if x not in sa][:n])
+
+
+def phase_tools(tmp, contig_default):
+    """The port's correctness tools on the card: (a) the differential
+    fuzzer (tools/fuzz_differential.py) on FUZZ_SEEDS with every arm, one
+    runner per device arm for all seeds, each seed's VCFs byte-identical
+    and each device arm launching its kernels (counts reset before each
+    arm, read after it); (b) a 4 x 500 kb contig fixture at 30x through
+    --stream-contigs with the default cuda runner and 4 host threads (the
+    contig switch and parse-ahead beside the dispatch worker), the same
+    unstreamed and --pairhmm native, the three VCFs identical, with
+    check_truth's sensitivity; (c) tools/host_profile.py (the device
+    stubbed out) on phase_contig's 2 Mb contig beside the default cuda
+    runs' walls and stages."""
+    import torch
+
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.tools import check_truth, host_profile, make_fixture
+    from gatk_hc_tpu_torch.tools import fuzz_differential as fz
+
+    runners = fz.ArmRunners("cuda")
+    keep = os.path.join(tmp, "fuzz_failures")
+    t0 = time.perf_counter()
+    for seed in FUZZ_SEEDS:
+        row = fz.run_seed(seed, keep, fz.ARMS, runners=runners)
+        emit({"phase": "tools_fuzz", **row})
+        if not row["ok"]:
+            kept = os.path.join(keep, f"seed{seed}")
+            with open(os.path.join(kept, f"{fz.ARMS[0]}.vcf"), "rb") as handle:
+                want = handle.read()
+            for arm in row["differ"]:
+                with open(os.path.join(kept, f"{arm}.vcf"), "rb") as handle:
+                    only_want, only_arm = vcf_difference(want, handle.read())
+                emit({"phase": "tools_fuzz_diff", "seed": seed, "arm": arm,
+                      "only_python": only_want, "only_arm": only_arm})
+            raise AssertionError(f"fuzz seed {seed}: {row['differ']} differ "
+                                 "from the python arm")
+        for arm, (must, may) in FUZZ_LAUNCHES.items():
+            launched = set(row["device"][arm]["kernel_launches"])
+            if not must <= launched <= may:
+                raise AssertionError(f"fuzz seed {seed} arm {arm}: launched "
+                                     f"{launched}, expected {must} <= it <= "
+                                     f"{may}")
+    fuzz_s = time.perf_counter() - t0
+
+    fix = os.path.join(tmp, "ctg4")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_fixture.main([fix, "--contigs", "4", "--length",
+                           str(CTG4_LENGTH), "--name", "ctg4"])
+    gen_s = time.perf_counter() - t0
+    base = ["-I", os.path.join(fix, "ctg4.sam"),
+            "-R", os.path.join(fix, "ctg4.fa")]
+    runs = {
+        "stream_cuda": ["--stream-contigs", "--host-threads", "4"],
+        "unstreamed_cuda": ["--host-threads", "4"],
+        "native": ["--pairhmm", "native"],
+    }
+    done, vcfs = {}, {}
+    for name, flags in runs.items():
+        vcf = os.path.join(tmp, f"ctg4.{name}.vcf")
+        torch.cuda.reset_peak_memory_stats()
+        stats = run_cli(base + ["-O", vcf] + flags)
+        with open(vcf, "rb") as handle:
+            vcfs[name] = handle.read()
+        done[name] = {
+            "wall_s": stats["wall_s"], "regions": stats["regions"],
+            "variants": stats["variants"], "stages": stats["stages"],
+            "launches": {k: n for k, n in stats["launches"].items() if n},
+            "dispatch_profile": stats.get("dispatch_profile"),
+            "device_stages_ms": stats.get("device_stages_ms"),
+            "cuda_max_memory_allocated_mb": round(
+                torch.cuda.max_memory_allocated() / 2**20, 1),
+        }
+        if name != "native":
+            check_run(f"4 contigs {name}", stats, {"ppe4"}, _PPE_ANY,
+                      {"planes", "packednib", "packed"})
+    truth = check_truth.check(os.path.join(tmp, "ctg4.stream_cuda.vcf"),
+                              os.path.join(fix, "ctg4.truth.txt"))
+    identical = {name: vcfs[name] == vcfs["native"] for name in runs}
+    emit({"phase": "tools_4contig_stream", "fixture_gen_s": round(gen_s, 1),
+          "identical_to_native": identical, "check_truth": truth,
+          "fuzz_s": round(fuzz_s, 1), **done})
+    if not all(identical.values()):
+        raise AssertionError(f"4-contig fixture: VCFs differ {identical}")
+    if (done["stream_cuda"]["regions"] != CTG4_REGIONS
+            or not truth["sensitivity"]):
+        raise AssertionError(f"4-contig fixture: {done['stream_cuda']}, "
+                             f"{truth}")
+
+    fix = os.path.join(tmp, "chr20sim")
+    prof = host_profile.profile(
+        os.path.join(fix, "chr20sim.sam"), os.path.join(fix, "chr20sim.fa"),
+        threads=DEFAULT_CONFIG.host_threads)[0]
+    emit({"phase": "tools_host_profile", "host_threads":
+          DEFAULT_CONFIG.host_threads, "stub": prof,
+          "default_cuda": contig_default,
+          "stub_wall_over_default_wall": [
+              round(prof["wall_s"] / w, 3) for w in contig_default["wall_s"]]})
+    if (prof["regions"] != contig_default["regions"]
+            or not prof["reads_parsed"]):
+        raise AssertionError(f"host_profile on 2 Mb: {prof}")
+
+
 def main() -> int:
     import torch
 
@@ -1474,8 +1617,9 @@ def main() -> int:
         chrm_launches = phase_chrm(tmp)
         f32_launches, f32_tiles = phase_chrm_engines(tmp)
         chrm_launches.update(f32_launches)
-        contig_launches, contig_tiles = phase_contig(tmp)
+        contig_launches, contig_tiles, contig_default = phase_contig(tmp)
         phase_multi(tmp)
+        phase_tools(tmp, contig_default)
     # the genotype kernel at the tiles its main-path runs gave it: the
     # kernels line reports each instance at its run's most common shape
     main_tiles = {

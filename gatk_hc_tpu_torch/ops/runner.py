@@ -602,6 +602,8 @@ class TorchPairHMMRunner:
         self.init_profile: Dict[str, float] = {}
         # launches by path, surfaced as dispatch_profile in --stats
         self.dispatch_counts: Dict[str, int] = {}
+        # groups by padded shape (r_pad, c_pad): the bucket shapes launched
+        self.bucket_counts: Dict[Tuple[int, int], int] = {}
         # stage times in ms (STAGES)
         self.stage_ms: Dict[str, List[float]] = {s: [] for s in STAGES}
 
@@ -994,6 +996,8 @@ class TorchPairHMMRunner:
         payload there for _dispatch_fused."""
         t_pack = time.perf_counter()
         r_pad, c_pad = self._pads_for_group(jobs, group)
+        self.bucket_counts[r_pad, c_pad] = (
+            self.bucket_counts.get((r_pad, c_pad), 0) + 1)
         if self.striped:
             path, calibrate = "striped", False
         else:

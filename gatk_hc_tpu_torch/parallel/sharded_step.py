@@ -269,6 +269,8 @@ class ShardMapPairHMMRunner:
         self.mesh = mesh if mesh is not None else default_mesh(device)
         self._trans = transition_constants(cfg.gop_char, cfg.gcp_char)
         self._steps = {}
+        # regions by padded shape (r_pad, c_pad): the bucket shapes launched
+        self.bucket_counts: Dict[Tuple[int, int], int] = {}
 
     def _step(self, r_pad: int, c_pad: int):
         key = (r_pad, c_pad)
@@ -298,6 +300,8 @@ class ShardMapPairHMMRunner:
             h = cfg.stripe_height
             r_pad = -(-r_pad // h) * h
         c_pad = _bucket(max(len(h) for h in haps), cfg.hap_pad_buckets)
+        self.bucket_counts[r_pad, c_pad] = (
+            self.bucket_counts.get((r_pad, c_pad), 0) + 1)
         nr_pad = _pow2_multiple(nr, shape["data"])
         nh_pad = _pow2_multiple(nh, shape["hap"])
         args = shard_inputs(

@@ -10,14 +10,16 @@ bundles no data, so the fixture is synthesized deterministically:
   Phred-encoded qualities, and proper SAM fields (FLAG/RNEXT='='/TLEN).
 
 Usage:  python -m gatk_hc_tpu_torch.tools.make_fixture [outdir] [--depth N]
-        [--length L]
+        [--length L] [--contigs N]
 """
 
 from __future__ import annotations
 
 import argparse
+import multiprocessing
 import os
 import random
+import shutil
 
 from ..io.fasta import FastaRecord, write_fasta
 
@@ -185,6 +187,22 @@ def simulate_reads(
     return [line for _, line in reads]
 
 
+def _write_contig(job):
+    """One contig of the fixture: its reference, planted variants and reads,
+    the reads' SAM lines written to ``part`` -> (record, reads, variants).
+    Each contig draws from its own ``random.Random(seed)``, so contigs made
+    in separate processes give the same bytes as in one."""
+    name, seed, length, depth, profile, part = job
+    rng = random.Random(seed)
+    ref = make_reference(rng, length, profile=profile)
+    alt, variants, anchors = plant_variants(rng, ref, profile=profile)
+    sam_lines = simulate_reads(rng, name, ref, alt, depth, anchors=anchors)
+    with open(part, "w") as handle:
+        for line in sam_lines:
+            handle.write(line + "\n")
+    return FastaRecord(name, "synthetic fixture", ref), len(sam_lines), variants
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("outdir", nargs="?", default="fixtures")
@@ -215,32 +233,41 @@ def main(argv=None) -> None:
         if args.contigs == 1
         else [f"{args.name}{i + 1}" for i in range(args.contigs)]
     )
-    records = []
-    per_contig = []  # (name, sam_lines, variants)
-    for i, name in enumerate(names):
-        rng = random.Random(args.seed + i)
-        ref = make_reference(rng, args.length, profile=args.profile)
-        alt, variants, anchors = plant_variants(rng, ref, profile=args.profile)
-        sam_lines = simulate_reads(rng, name, ref, alt, args.depth, anchors=anchors)
-        records.append(FastaRecord(name, "synthetic fixture", ref))
-        per_contig.append((name, sam_lines, variants))
-
     os.makedirs(args.outdir, exist_ok=True)
-    write_fasta(os.path.join(args.outdir, f"{args.name}.fa"), records)
-    n_reads = n_variants = 0
-    with open(os.path.join(args.outdir, f"{args.name}.sam"), "w") as handle:
-        handle.write(f"@HD\tVN:1.6\tSO:coordinate\n")
-        for record in records:
-            handle.write(f"@SQ\tSN:{record.name}\tLN:{len(record.seq)}\n")
-        for _, sam_lines, _ in per_contig:
-            for line in sam_lines:
-                handle.write(line + "\n")
-            n_reads += len(sam_lines)
+    jobs = [
+        (name, args.seed + i, args.length, args.depth, args.profile,
+         os.path.join(args.outdir, f".{name}.part.sam"))
+        for i, name in enumerate(names)
+    ]
+    try:
+        workers = min(len(jobs), os.cpu_count() or 1)
+        if workers > 1:
+            # several contigs: one spawned process each, up to one per CPU
+            ctx = multiprocessing.get_context("spawn")
+            with ctx.Pool(workers) as pool:
+                per_contig = pool.map(_write_contig, jobs)
+        else:
+            per_contig = [_write_contig(job) for job in jobs]
+        records = [record for record, _, _ in per_contig]
+        write_fasta(os.path.join(args.outdir, f"{args.name}.fa"), records)
+        with open(os.path.join(args.outdir, f"{args.name}.sam"), "w") as handle:
+            handle.write(f"@HD\tVN:1.6\tSO:coordinate\n")
+            for record in records:
+                handle.write(f"@SQ\tSN:{record.name}\tLN:{len(record.seq)}\n")
+            for job in jobs:
+                with open(job[-1]) as part:
+                    shutil.copyfileobj(part, handle, 1 << 24)
+    finally:
+        for job in jobs:
+            if os.path.exists(job[-1]):
+                os.remove(job[-1])
+    n_reads = sum(n for _, n, _ in per_contig)
+    n_variants = 0
     with open(os.path.join(args.outdir, f"{args.name}.truth.txt"), "w") as handle:
-        for name, _, variants in per_contig:
+        for record, _, variants in per_contig:
             for pos, kind, payload in variants:
                 # single-contig keeps the historical 3-column format
-                prefix = f"{name}\t" if args.contigs > 1 else ""
+                prefix = f"{record.name}\t" if args.contigs > 1 else ""
                 handle.write(f"{prefix}{pos}\t{kind}\t{payload}\n")
             n_variants += len(variants)
     print(
