@@ -36,7 +36,13 @@ shardmap on a 2x2 grid of the card, genotyper_cuda) on seven seeded
 genomes of 1-3 contigs, byte-identical per seed; a 4 x 500 kb fixture
 through --stream-contigs with the cuda runner, unstreamed and native
 (identical, with check_truth's sensitivity); and host_profile (the device
-stubbed out) on the 2 Mb contig beside the default run's stages.
+stubbed out) on the 2 Mb contig beside the default run's stages.  Last,
+the cold start (phase_cold), each run a fresh process: ``import torch``
+alone; chrM through --pairhmm native, which never loads torch; the 2 Mb
+contig through the default cuda CLI twice (torch imported on the
+runner's build thread, every kernel library a cache hit, identical to
+native); tools/warm_cache.py into an empty kernel cache, then chrM on
+that cache (every library a hit, no nvcc, golden).
 Every phase prints one JSON line and raises on failure.  The last lines are
 the card's name and power limit (nvidia-smi), one JSON object per kernel
 with its times, launches and bound, and ``{"ok": true, "device": ...}``.
@@ -106,6 +112,11 @@ LONG_SHAPE = (160, 768)
 # B cut to a quarter)
 CARRY_SHAPE = (288, 448)
 LAUNCH_KEYS = ("rows_per_lane", "stripes", "warps_per_block", "blocks_per_sm")
+# the kernels line's names, in its order: one per launch counter
+KERNEL_NAMES = tuple(
+    [f"ppe{nr}" for nr in PPE_REPLACES] + [f"striped{h}" for h in STRIPES]
+    + [f"ppe_front_{path}" for path in FRONTS]
+    + ["genotype_f64", "genotype_f32"])
 
 
 def emit(obj) -> None:
@@ -1126,9 +1137,10 @@ def phase_contig(tmp):
     """2 Mb contig at 30x: the cuda engine through the default (adaptive
     shipping, ppe kernel, host genotyper), each shipping path of
     PATH_RUNS, the striped kernel and the genotype kernel (--genotyper
-    cuda), in turns forward then backward so that their walls and
-    stages.genotype compare within one call, each VCF byte-identical to
-    the port's native engine's.  -> (each kernel's launches in the first
+    cuda), each once and the default first and last (its two runs
+    bracket the others), so that their walls and stages.genotype compare
+    within one call, each VCF byte-identical to the port's native
+    engine's.  -> (each kernel's launches in the first
     run of the path that drives it, the genotype tiles of the first
     --genotyper cuda run: recording_genotype_tiles, the default runs'
     walls and stages)."""
@@ -1146,7 +1158,7 @@ def phase_contig(tmp):
     order = list(CONTIG_RUNS)
     runs = {name: [] for name in order}
     record = None
-    for k, name in enumerate(order + order[::-1]):
+    for k, name in enumerate(order + order[:1]):
         vcf = os.path.join(tmp, f"chr20sim.{k}.{name}.vcf")
         torch.cuda.reset_peak_memory_stats()
         recording = contextlib.nullcontext()
@@ -1598,6 +1610,158 @@ def phase_tools(tmp, contig_default):
         raise AssertionError(f"host_profile on 2 Mb: {prof}")
 
 
+def fresh_process(args, env=None, timeout_s=900):
+    """``python args...`` in a fresh process from the checkout's root ->
+    (its wall in s, its stdout lines).  Raises when it fails."""
+    full_env = dict(os.environ, PYTHONPATH=ROOT)
+    full_env.update(env or {})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=full_env,
+                          capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{args[:3]} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return wall, proc.stdout.splitlines()
+
+
+# the CLI in a fresh process that reports, on its last line, whether torch
+# was loaded when it ended
+CLI_WRAPPER = ("import json, sys\n"
+               "from gatk_hc_tpu_torch import cli\n"
+               "rc = cli.main(sys.argv[1:])\n"
+               "print(json.dumps({'rc': rc, 'torch_loaded': "
+               "'torch' in sys.modules}))\n")
+
+
+def cold_cli(argv, env=None):
+    """One CLI run with --stats in a fresh process -> (process wall, its
+    --stats, whether torch was loaded at its end)."""
+    wall, lines = fresh_process(["-c", CLI_WRAPPER, *argv, "--stats"], env)
+    tail = json.loads(lines[-1])
+    if tail["rc"] != 0:
+        raise RuntimeError(f"cli {argv} exited {tail['rc']}")
+    stats = json.loads(next(line for line in lines if line.startswith("{")))
+    return wall, stats, tail["torch_loaded"]
+
+
+def all_hits(name, init):
+    """The run found every kernel library in the cache and started no
+    nvcc (the cache's own record, init_profile.kernel_cache)."""
+    cache = (init or {}).get("kernel_cache") or {}
+    libs = cache.get("libraries") or {}
+    from gatk_hc_tpu_torch.ops import _kernels
+
+    if (set(libs) != set(_kernels.KERNELS) or cache.get("nvcc_runs") != 0
+            or any(rec["status"] != "hit" for rec in libs.values())):
+        raise AssertionError(f"{name}: kernel cache {cache}")
+    return cache
+
+
+def phase_cold(tmp, contig_default):
+    """The cold start, every run a fresh process: (a) ``import torch``
+    alone, twice; (b) chrM through --pairhmm native --stats: the golden
+    VCF, torch never loaded; (c) the 2 Mb contig of phase_contig through
+    the default cuda CLI, twice: each VCF identical to native, torch
+    imported on the build thread (init_profile.torch_import_s,
+    torch_preloaded false), every kernel library a cache hit, the walls
+    and main-thread stages beside phase_contig's warm in-process runs;
+    (d) tools/warm_cache.py into an empty cache
+    directory (every library built, every instance bit-equal to its plain
+    version), then chrM through the cuda CLI with
+    GATK_HC_TPU_TORCH_KERNEL_CACHE on that directory: every library a hit,
+    no nvcc, the golden VCF."""
+    from gatk_hc_tpu_torch.parallel.compile_cache import CACHE_ENV
+
+    fixtures = os.path.join(ROOT, "fixtures")
+    chrm = ["-I", os.path.join(fixtures, "chrM.sam"),
+            "-R", os.path.join(fixtures, "chrM.fa")]
+    with open(os.path.join(fixtures, "chrM.golden.vcf"), "rb") as handle:
+        golden = handle.read()
+    row = {"phase": "cold"}
+
+    imports = []
+    for _ in range(2):
+        wall, lines = fresh_process([
+            "-c", "import time; t = time.perf_counter(); import torch; "
+            "print(time.perf_counter() - t)"])
+        imports.append({"import_s": round(float(lines[-1]), 3),
+                        "process_wall_s": round(wall, 3)})
+    row["import_torch"] = imports
+
+    out = os.path.join(tmp, "chrM.cold_native.vcf")
+    wall, stats, torch_loaded = cold_cli(chrm + ["-O", out, "--pairhmm",
+                                                 "native"])
+    with open(out, "rb") as handle:
+        identical = handle.read() == golden
+    row["chrM_native"] = {
+        "process_wall_s": round(wall, 3), "wall_s": stats["wall_s"],
+        "pre_main_s": stats.get("pre_main_s"), "golden_identical": identical,
+        "torch_loaded": torch_loaded}
+    if not identical or torch_loaded:
+        emit(row)
+        raise AssertionError(f"cold chrM native: {row['chrM_native']}")
+
+    fix = os.path.join(tmp, "chr20sim")
+    contig = ["-I", os.path.join(fix, "chr20sim.sam"),
+              "-R", os.path.join(fix, "chr20sim.fa")]
+    with open(os.path.join(tmp, "chr20sim.native.vcf"), "rb") as handle:
+        want = handle.read()
+    runs = []
+    for k in range(2):
+        out = os.path.join(tmp, f"chr20sim.cold{k}.vcf")
+        wall, stats, _loaded = cold_cli(contig + ["-O", out])
+        with open(out, "rb") as handle:
+            identical = handle.read() == want
+        init = stats.get("init_profile") or {}
+        runs.append({
+            "process_wall_s": round(wall, 3), "wall_s": stats["wall_s"],
+            "process_age_s": stats.get("process_age_s"),
+            "pre_main_s": stats.get("pre_main_s"),
+            "identical_to_native": identical, "stages": stats["stages"],
+            "init_profile": init,
+            "device_stages_ms": stats.get("device_stages_ms")})
+        if (not identical or init.get("torch_preloaded") is not False
+                or not init.get("torch_import_s")
+                or "build_start_at_age_s" not in init):
+            emit({**row, "contig_cold": runs})
+            raise AssertionError(f"cold 2 Mb cuda run {k}: {runs[-1]}")
+        all_hits(f"cold 2 Mb cuda run {k}", init)
+    row["contig_cold"] = runs
+    row["contig_warm_in_process"] = contig_default
+
+    cache = os.path.join(tmp, "kernel_cache")
+    wall, lines = fresh_process(["-m", "gatk_hc_tpu_torch.tools.warm_cache",
+                                 "--cache-dir", cache])
+    warm = json.loads(lines[-1])
+    warm["process_wall_s"] = round(wall, 3)
+    row["warm_cache"] = warm
+    counters = {c for inst in warm["instances"].values()
+                for c in inst["counters"]}
+    if (warm["nvcc_runs"] != len(warm["libraries"])
+            or any(rec["status"] != "built"
+                   for rec in warm["libraries"].values())
+            or not all(inst["bit_equal_plain"]
+                       for inst in warm["instances"].values())
+            or counters != set(KERNEL_NAMES)):
+        emit(row)
+        raise AssertionError(f"warm_cache into an empty cache: {warm}")
+    out = os.path.join(tmp, "chrM.cold_cached.vcf")
+    wall, stats, _loaded = cold_cli(chrm + ["-O", out], env={CACHE_ENV: cache})
+    with open(out, "rb") as handle:
+        identical = handle.read() == golden
+    init = stats.get("init_profile") or {}
+    row["chrM_cuda_on_warmed_cache"] = {
+        "process_wall_s": round(wall, 3), "wall_s": stats["wall_s"],
+        "golden_identical": identical, "init_profile": init}
+    emit(row)
+    if not identical:
+        raise AssertionError("chrM on the warmed cache: not the golden VCF")
+    if os.path.realpath(all_hits("chrM on the warmed cache", init)["dir"]) \
+            != os.path.realpath(cache):
+        raise AssertionError(f"chrM on the warmed cache: {init}")
+
+
 def main() -> int:
     import torch
 
@@ -1620,6 +1784,7 @@ def main() -> int:
         contig_launches, contig_tiles, contig_default = phase_contig(tmp)
         phase_multi(tmp)
         phase_tools(tmp, contig_default)
+        phase_cold(tmp, contig_default)
     # the genotype kernel at the tiles its main-path runs gave it: the
     # kernels line reports each instance at its run's most common shape
     main_tiles = {
@@ -1680,6 +1845,7 @@ def main() -> int:
             "library_ms": None,
             "shape": {"S": rep["S"], "R": rep["R"], "H": rep["H"]},
         })
+    assert [line["name"] for line in lines] == list(KERNEL_NAMES)
     print(smi, flush=True)
     emit({"kernels": lines})
     emit({"ok": True, "device": {

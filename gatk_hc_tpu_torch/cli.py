@@ -290,6 +290,13 @@ def _run(args) -> int:
     start = time.perf_counter()
     runner = None
     multi = bool(args.num_processes and args.num_processes > 1)
+    if cfg.pairhmm_engine in ("cuda", "shardmap") or cfg.genotyper_engine == "cuda":
+        # the engines that launch CUDA kernels build and find them in the
+        # kernel cache (GATK_HC_TPU_TORCH_KERNEL_CACHE); native and python
+        # never touch torch
+        from .parallel.compile_cache import enable_compile_cache
+
+        enable_compile_cache()
     try:
         if multi:
             from .parallel.multihost import run_multihost
@@ -317,9 +324,9 @@ def _run(args) -> int:
             if cfg.pairhmm_engine == "cuda":
                 from .ops.runner import BackgroundRunner
 
-                # kernel build + load, CUDA context, device tables and the
-                # kernels' warm-up launches run on a background thread,
-                # overlapped with parse/assembly
+                # the torch import, kernel build + load, CUDA context,
+                # device tables and the kernels' warm-up launches run on a
+                # background thread, overlapped with parse/assembly
                 runner = BackgroundRunner(cfg, device=args.device)
             try:
                 with maybe_profile():
@@ -398,7 +405,7 @@ def _run(args) -> int:
                 stats["cuda_max_memory_allocated_mb"] = round(
                     torch.cuda.max_memory_allocated(inner.device) / 2**20, 1
                 )
-        from .ops.pairhmm_torch import LAUNCHES
+        from .ops._kernels import LAUNCHES
 
         # kernel launches of this process (the PairHMM kernels and the
         # genotype kernel; warm-up launches uncounted)

@@ -236,15 +236,16 @@ DEFAULT_CONFIG = HCConfig()
 
 
 # --pairhmm auto: below this SAM size the native C++ engine takes less wall
-# than the cuda engine — CUDA context, kernel load and warm-up launches
-# cost more than the card saves on a small input; from it up the card
-# wins.  Measured on one NVIDIA H100 80GB HBM3 at 700.00 W, one process
-# per run, 3 alternated pairs per size (PERF.md section 6, the auto
-# walls; tools/auto_threshold.py): native won up to a 500 kb contig at 30x
-# (35.2 MB of SAM), cuda from 1 Mb (70.4 MB) up; 64 MiB rounds that down.
+# than the cuda engine — the torch import, CUDA context, kernel load and
+# warm-up launches cost more than the card saves on a small input; from it
+# up the card wins.  Measured on one NVIDIA H100 80GB HBM3 at 700.00 W, one
+# process per run, 3 alternated rounds per size (PERF.md section 6, the
+# auto walls; tools/auto_threshold.py), with the native engine never
+# importing torch: native won up to a 2 Mb contig at 30x (141.2 MB of
+# SAM), cuda from 4 Mb (282.9 MB) up; 256 MiB rounds that down.
 # Latency-only choice: every engine is bit-exact, so auto never changes
 # the VCF.
-AUTO_NATIVE_MAX_SAM_BYTES = 64 * 1024 * 1024
+AUTO_NATIVE_MAX_SAM_BYTES = 256 * 1024 * 1024
 
 
 def resolve_auto_pairhmm_engine(sam_bytes: int, device: str = "cuda") -> str:

@@ -25,7 +25,7 @@ import torch
 
 from .config import DEFAULT_CONFIG
 from .ops.pairhmm_torch import forward_batch, transition_constants
-from .ops.runner import local_devices
+from .ops.torch_runner import local_devices
 
 TRANS = transition_constants(ord("I"), ord("+"))
 
@@ -147,7 +147,8 @@ def _dryrun_production_runner(devices) -> tuple:
     """The runner call_batched uses, over ``devices``: 2 jobs per group
     (a read budget of 4), so 2n jobs make n launch units -> (slots hit,
     launch units)."""
-    from .ops.runner import PairHMMJob, TorchPairHMMRunner
+    from .ops.runner import PairHMMJob
+    from .ops.torch_runner import TorchPairHMMRunner
 
     cfg = dataclasses.replace(
         DEFAULT_CONFIG, read_pad_buckets=(32,), hap_pad_buckets=(128,),

@@ -256,7 +256,7 @@ def call_batched(
         assemble_fn = make_assemble_fn(cfg)
     if runner is None:
         if cfg.pairhmm_engine == "cuda":
-            from ..ops.runner import TorchPairHMMRunner
+            from ..ops.torch_runner import TorchPairHMMRunner
 
             runner = TorchPairHMMRunner(cfg, device=device)
         elif cfg.pairhmm_engine == "native":
@@ -264,7 +264,7 @@ def call_batched(
 
             runner = NativePairHMMRunner(cfg)
         elif cfg.pairhmm_engine == "diag":
-            from ..ops.runner import DiagPairHMMRunner
+            from ..ops.torch_runner import DiagPairHMMRunner
 
             runner = DiagPairHMMRunner(cfg, device=device)
         elif cfg.pairhmm_engine == "shardmap":

@@ -1,13 +1,32 @@
-"""Build and ctypes binding of the package's CUDA kernels (csrc/*.cu).
+"""The package's CUDA kernel libraries (csrc/*.cu): build, cache, ctypes
+binding, and the launch counts of their wrappers.
 
 Each source is compiled with nvcc into a shared library with a plain C
-interface, at first use, into ``gatk_hc_tpu_torch/_build/``.  The library's
-file name carries a hash of the source and the flags, so an edited source
-never loads a stale build, and the compile goes to a private temporary name
-that os.replace moves into place (safe when several processes build at
-once).  Nothing here runs at import time: a machine without nvcc or a card
-imports the package and uses the kernels' plain PyTorch versions on CPU
-tensors.  A failed build raises; there is no fallback.
+interface, at first use, into the kernel cache directory
+(parallel/compile_cache.py: ``gatk_hc_tpu_torch/_build/`` unless
+GATK_HC_TPU_TORCH_KERNEL_CACHE or ``enable_compile_cache`` moves it).
+
+These content-addressed libraries are the port's ahead-of-time artefacts,
+its counterpart of gatk_hc_tpu/ops/aot.py (there is no aot.py here: a
+wrapper module would only repeat this one).  A library's file name carries
+its key, a hash of every source it is built from (the .cu file and each
+local ``#include "..."``), the nvcc flags (the arch among them) and the
+toolkit's identity (the resolved nvcc's path and stat, and
+``version.json`` beside its ``bin/``), so an edited source or another
+toolkit never loads a stale build; the key is computed without starting a
+process.  A build compiles to a private temporary name that os.replace
+moves into place (safe when several processes build at once).  Each
+library's outcome in this process, ``hit`` (found in the cache) or
+``built`` (nvcc ran), with its seconds, is in ``cache_report()``
+(``init_profile["kernel_cache"]`` in the CLI's --stats).  A failed build
+raises, and so does a cached library that fails to load, with its path:
+there is no silent rebuild and no fallback (the reference's ``aot.load``
+falls back to tracing instead).
+
+Nothing here runs at import time and nothing imports torch: a machine
+without nvcc or a card imports the package and uses the kernels' plain
+PyTorch versions on CPU tensors, and a run that launches nothing reads
+``LAUNCHES`` without loading torch.
 """
 
 from __future__ import annotations
@@ -15,15 +34,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+import time
+from typing import Dict, List
+
+from ..parallel.compile_cache import DEFAULT_CACHE_DIR
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
 
 # -fmad=false: no mul+add contraction, f32 or f64 (bit-exactness vs the
 # oracle and the host genotyper); -ftz=true: f32 results flush to zero like
@@ -35,8 +57,41 @@ NVCC_FLAGS = (
     "-fmad=false", "-ftz=true",
 )
 
+# Kernel launches per instance ("ppe<NR>", "striped<H>"); each wrapper adds
+# one where it launches its kernel and nowhere else (chip_smoke.py and the
+# CLI's --stats read these).  A launch of the ppe kernel's unique-rows
+# entry (ops/pairhmm_front.py) also counts under its source,
+# "ppe_front_<planes|packed|nib>", so "ppe<NR>" less those is the
+# pair-minor entry's launches.  The genotyper kernel (ops/genotyper_cuda.py)
+# counts here too, per instance ("genotype_f64", "genotype_f32").
+LAUNCHES: Dict[str, int] = {
+    **{f"ppe{nr}": 0 for nr in (1, 2, 4, 8)},
+    **{f"striped{h}": 0 for h in (8, 16, 32)},
+    **{f"ppe_front_{path}": 0 for path in ("planes", "packed", "nib")},
+    "genotype_f64": 0,
+    "genotype_f32": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_cache_dir = os.path.abspath(DEFAULT_CACHE_DIR)
+# this process's outcome per library: {"status": "hit" | "built", "s": ...}
+_record: Dict[str, Dict[str, object]] = {}
+_record_lock = threading.Lock()
+_nvcc_runs = 0  # nvcc processes this process started
+
+
+def set_cache_dir(path: str) -> None:
+    """Build and look up the libraries in ``path`` from now on (the
+    libraries this process already loaded stay loaded)."""
+    global _cache_dir
+    _cache_dir = os.path.abspath(path)
 
 
 def nvcc_path() -> str:
@@ -50,25 +105,81 @@ def nvcc_path() -> str:
     return path
 
 
+def toolkit_identity() -> bytes:
+    """What names the toolkit in a key, read without starting a process:
+    the resolved nvcc's path, size and mtime, and the toolkit's
+    version.json (beside nvcc's bin/) when there is one."""
+    nvcc = os.path.realpath(nvcc_path())
+    st = os.stat(nvcc)
+    ident = f"{nvcc}\0{st.st_size}\0{st.st_mtime_ns}\0".encode()
+    version = os.path.join(os.path.dirname(os.path.dirname(nvcc)),
+                           "version.json")
+    if os.path.exists(version):
+        with open(version, "rb") as handle:
+            ident += handle.read()
+    return ident
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every local file it includes (``#include
+    "..."``, followed recursively, relative to the including file)."""
+    out: List[str] = []
+    todo = [os.path.join(CSRC, name + ".cu")]
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, "rb") as handle:
+            text = handle.read()
+        todo.extend(os.path.join(os.path.dirname(path), inc.decode())
+                    for inc in _INCLUDE.findall(text))
+    return out
+
+
+def library_key(name: str) -> str:
+    """The library's key: a hash of its sources, the flags and the toolkit."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        with open(path, "rb") as handle:
+            digest.update(os.path.relpath(path, CSRC).encode() + b"\0")
+            digest.update(handle.read())
+    digest.update(b"\0".join(f.encode() for f in NVCC_FLAGS))
+    digest.update(toolkit_identity())
+    return digest.hexdigest()[:16]
+
+
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content- and flag-addressed)."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as handle:
-        digest = hashlib.sha1(handle.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    """Where ``csrc/<name>.cu`` builds to in the cache (content-, flag- and
+    toolkit-addressed)."""
+    return os.path.join(_cache_dir, f"lib{name}-{library_key(name)}.so")
+
+
+def _note(name: str, status: str, seconds: float) -> None:
+    with _record_lock:
+        _record.setdefault(name, {"status": status, "s": round(seconds, 3)})
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile ``csrc/<name>.cu`` unless its library is already cached."""
+    t0 = time.perf_counter()
     out = library_path(name)
     if os.path.exists(out):
+        _note(name, "hit", time.perf_counter() - t0)
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-", suffix=".so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(out), prefix=f".{name}-",
+                               suffix=".so")
     os.close(fd)
     try:
         cmd = [nvcc_path(), *NVCC_FLAGS, os.path.join(CSRC, name + ".cu"),
                "-o", tmp]
+        global _nvcc_runs
+        with _record_lock:
+            _nvcc_runs += 1
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -78,6 +189,7 @@ def build(name: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    _note(name, "built", time.perf_counter() - t0)
     return out
 
 
@@ -90,15 +202,34 @@ def build_all() -> Dict[str, str]:
         return dict(zip(KERNELS, pool.map(build, KERNELS)))
 
 
+def cache_report() -> Dict[str, object]:
+    """This process's kernel cache: its directory, the nvcc processes it
+    started and, per library built or looked up, ``hit`` or ``built`` (its
+    first outcome in this process) and the seconds that took."""
+    with _record_lock:
+        return {
+            "dir": _cache_dir,
+            "nvcc_runs": _nvcc_runs,
+            "libraries": {name: dict(rec) for name, rec in _record.items()},
+        }
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, once per process."""
+    """Build (if needed) and load one kernel library, once per process.  A
+    library that fails to load raises with its path."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            path = build(name)
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as exc:
+                raise RuntimeError(
+                    f"cannot load the kernel library {path}: {exc} (remove "
+                    "it to rebuild)") from exc
             _BINDERS[name](lib)
             _libs[name] = lib
     return lib

@@ -70,7 +70,7 @@ def make_pairhmm_engine(cfg: HCConfig, device="cuda") -> Callable:
 
         return native_pairhmm_engine(cfg)
     if name == "cuda":
-        from .runner import torch_pairhmm_engine
+        from .torch_runner import torch_pairhmm_engine
 
         return torch_pairhmm_engine(cfg, device=device)
     if name == "diag":

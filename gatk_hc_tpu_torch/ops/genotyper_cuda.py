@@ -14,7 +14,7 @@ float64 (the default of the port: the H100 has native f64; bit-equal to
 the host genotyper) and float32 (Neumaier-compensated read sums, for the
 guarded f32 path).  ``genotype_sites_cuda`` launches the kernel on CUDA
 tensors and counts the launch under ``genotype_f64`` / ``genotype_f32`` in
-ops/pairhmm_torch.py::LAUNCHES; on CPU tensors it runs
+ops/_kernels.py::LAUNCHES; on CPU tensors it runs
 ``genotype_sites_plain``, which gives the same outputs bit for bit.
 Nothing else picks between them.
 """
@@ -216,7 +216,6 @@ def genotype_sites_cuda(lik, hap_to_allele, read_keep, hap_valid,
     if lik.device.type != "cuda":
         raise ValueError(f"unsupported device {lik.device}")
     from . import _kernels
-    from .pairhmm_torch import LAUNCHES
 
     lib = _kernels.load("genotyper")
     S, R, H = lik.shape
@@ -233,7 +232,7 @@ def genotype_sites_cuda(lik, hap_to_allele, read_keep, hap_valid,
     )
     if err != 0:
         raise RuntimeError(f"genotype_sites launch failed: CUDA error {err}")
-    LAUNCHES["genotype_f64" if f64 else "genotype_f32"] += 1
+    _kernels.LAUNCHES["genotype_f64" if f64 else "genotype_f32"] += 1
     return gl, best, gq
 
 

@@ -34,30 +34,12 @@ import numpy as np
 import torch
 
 from ..utils.quality import MATCH_TO_MATCH_F32, PH2PR_F32, set_mm_prob
+# the kernels' launch counts (LAUNCHES) live in the torch-free
+# ops/_kernels.py, so that --stats reads them without loading torch
+from ._kernels import LAUNCHES, reset_launches  # noqa: F401 - re-exported
 
 # f32 smallest normal: results below it flush to zero (FTZ, not DAZ)
 MIN_NORMAL = float(np.ldexp(1.0, -126))
-
-# Kernel launches per instance ("ppe<NR>", "striped<H>"); each wrapper adds
-# one where it launches its kernel and nowhere else (chip_smoke.py and the
-# CLI's --stats read these).  A launch of the ppe kernel's unique-rows
-# entry (ops/pairhmm_front.py) also counts under its source,
-# "ppe_front_<planes|packed|nib>", so "ppe<NR>" less those is the
-# pair-minor entry's launches.  The genotyper kernel (ops/genotyper_cuda.py)
-# counts here too, per instance ("genotype_f64", "genotype_f32").
-LAUNCHES: Dict[str, int] = {
-    **{f"ppe{nr}": 0 for nr in (1, 2, 4, 8)},
-    **{f"striped{h}": 0 for h in (8, 16, 32)},
-    **{f"ppe_front_{path}": 0 for path in ("planes", "packed", "nib")},
-    "genotype_f64": 0,
-    "genotype_f32": 0,
-}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
 
 def transition_constants(gop: int, gcp: int) -> Tuple[float, ...]:
     """Scalar transition probs (GOP/GCP are constant strings, sam.hpp:31-32,

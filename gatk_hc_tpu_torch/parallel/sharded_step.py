@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..config import HCConfig
-from ..ops.runner import local_devices
+from ..ops.torch_runner import local_devices
 from ..utils.quality import (
     BASE_TABLE,
     INITIAL_CONSTANT_F32,

@@ -2,7 +2,7 @@
 the measurement behind config.AUTO_NATIVE_MAX_SAM_BYTES (--pairhmm auto).
 
     python -m gatk_hc_tpu_torch.tools.auto_threshold \\
-        [--lengths 50000,100000,250000,500000,1000000,2000000] \\
+        [--lengths 50000,100000,250000,500000,1000000,2000000,4000000,8000000] \\
         [--rounds 3] [--out auto_threshold.jsonl]
 
 Inputs: the chrM fixture and one contig at 30x per length
@@ -73,7 +73,8 @@ def make_inputs(tmp, lengths):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lengths",
-                    default="50000,100000,250000,500000,1000000,2000000")
+                    default="50000,100000,250000,500000,1000000,2000000,"
+                    "4000000,8000000")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out", default=None, help="also append lines here")
     args = ap.parse_args(argv)

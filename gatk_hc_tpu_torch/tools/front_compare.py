@@ -57,7 +57,7 @@ def worker(tree: str, reps: int, seed: int) -> None:
     from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
     from gatk_hc_tpu_torch.ops import _kernels
     from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
-    from gatk_hc_tpu_torch.ops.runner import TorchPairHMMRunner
+    from gatk_hc_tpu_torch.ops.torch_runner import TorchPairHMMRunner
 
     try:
         from gatk_hc_tpu_torch.ops import pairhmm_front as pf

@@ -152,11 +152,11 @@ class ArmRunners:
 
                 runner = BackgroundRunner(cfg, device=self.device)
             elif arm == "diag":
-                from ..ops.runner import DiagPairHMMRunner
+                from ..ops.torch_runner import DiagPairHMMRunner
 
                 runner = DiagPairHMMRunner(cfg, device=self.device)
             elif arm == "shardmap":
-                from ..ops.runner import local_devices
+                from ..ops.torch_runner import local_devices
                 from ..parallel.sharded_step import (ShardMapPairHMMRunner,
                                                      make_mesh)
 
