@@ -1610,6 +1610,242 @@ def phase_tools(tmp, contig_default):
         raise AssertionError(f"host_profile on 2 Mb: {prof}")
 
 
+# phase_long_reads: reads past the largest read bucket (224), as 2x250
+# kits and MiSeq 2x300 runs give them (make_fixture --read-length): the
+# contig name, its length, the read length, and the r_pad the default ppe
+# run and the striped run must launch at (ppe rounds to 8, striped to the
+# stripe height: ppe K 8 in one stripe at 256, K 8 in two with a carry at
+# 304; striped32 K 8 at 256, K 5 in two stripes with a carry at 320)
+LONG_READS = (("lr250", 500_000, 250, 256, 256),
+              ("lr300", 250_000, 300, 304, 320))
+# --pairhmm diag's window, beside native's on it: ~21 regions of ~0.3 s
+LONG_WINDOW = 5_000
+# fuzz seeds per read length (the one- and two-contig 6 kb genomes of
+# FUZZ_SEEDS, both profiles) and the arms: every device arm but shardmap,
+# whose bucketed planes raise past 224 bases in both packages
+LONG_FUZZ = ((250, (1019, 1010)), (300, (1019, 1028)))
+LONG_FUZZ_ARMS = ("native", "cuda", "cuda_striped", "cuda_stream_mt", "diag",
+                  "genotyper_cuda")
+LONG_RUNS = {
+    "cuda": ([], {"ppe4", "ppe_front_planes"}, _PPE_ANY,
+             {"planes", "packednib", "packed"}),
+    "striped": (["--pallas-algo", "striped"], {"striped32"}, {"striped32"},
+                {"striped"}),
+    "genotyper_cuda": (["--genotyper", "cuda"],
+                       {"ppe4", "ppe_front_planes", "genotype_f64"},
+                       _PPE_ANY | {"genotype_f64"},
+                       {"planes", "packednib", "packed"}),
+    "native": (["--pairhmm", "native"], set(), set(), set()),
+}
+
+
+@contextlib.contextmanager
+def recording_front_units():
+    """Inside, every launch of the ppe kernel's unique-rows entry is
+    tallied by (r_pad, c_pad, source), and the first launch unit of each
+    is kept: its segments with their device views cloned on the launching
+    stream (after its copy), the table, the transitions and NR.  The
+    launch and its count stay the wrapper's own.  Yields {"units": {key:
+    launches}, "inputs": {key: (segments, table, trans, nr)}}."""
+    from gatk_hc_tpu_torch.ops import pairhmm_front as pf
+
+    launch = pf.ppe_forward_unique
+    record = {"units": {}, "inputs": {}}
+
+    def recording(path, segments, ppe_table, trans, ppe_rows=4):
+        segments = list(segments)
+        key = (*segments[0].dims[2:], path)
+        record["units"][key] = record["units"].get(key, 0) + 1
+        if key not in record["inputs"]:
+            record["inputs"][key] = ([
+                dataclasses.replace(seg, views=tuple(v.clone()
+                                                     for v in seg.views))
+                for seg in segments], ppe_table, trans, ppe_rows)
+        return launch(path, segments, ppe_table, trans, ppe_rows)
+
+    pf.ppe_forward_unique = recording
+    try:
+        yield record
+    finally:
+        pf.ppe_forward_unique = launch
+
+
+def front_unit_row(run, key, launches, inputs):
+    """The entry on one recorded launch unit against its plain version,
+    bit for bit, with its time (uncounted launches), the plain version's
+    and the bound of its pairs (ppe_bound).  Raises when they differ."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.ops import pairhmm_front as pf
+    from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
+
+    segs, tab, trans, nr = inputs
+    r_pad, c_pad, path = key
+    pf.check(path, segs, tab)
+    unit = lambda: pf.launch_ppe_unique(path, segs, tab, trans, nr)  # noqa: E731
+    torch.cuda.synchronize()
+    got = unit()
+    want, plain_ms = timed_once(
+        lambda: pf.ppe_forward_unique_plain(path, segs, tab, trans))
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    parts = [pf.segment_inputs(path, seg, tab) for seg in segs]
+    rlen = np.concatenate([p[2].cpu().numpy() for p in parts])
+    clen = np.concatenate([p[3].cpu().numpy() for p in parts])
+    bound_ms, bound_by = ppe_bound(rlen, clen, c_pad)
+    k = pt.rows_per_lane(pt.select_rows(nr, r_pad), r_pad)
+    row = {
+        "phase": "long_reads_unit", "run": run, "r_pad": r_pad,
+        "c_pad": c_pad, "source": path, "launches": launches,
+        "segments": len(segs), "B": int(got.numel()),
+        "rows_per_lane": k, "stripes": pt.ppe_stripes(k, r_pad),
+        "bit_equal_plain": same,
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": round(time_ms(unit, 10), 4), "plain_ms": round(plain_ms, 3),
+        "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
+    }
+    row["pct_of_bound"] = round(100 * row["bound_ms"] / row["ms"], 1)
+    emit(row)
+    if not same:
+        raise AssertionError(f"{run}: the entry differs from its plain "
+                             f"version on the unit at {key}")
+    return row
+
+
+def phase_long_reads(tmp):
+    """Reads past the largest read bucket through the main path on the
+    card (LONG_READS): (a) a 500 kb contig at 30x with 250 bp reads and a
+    250 kb one with 300 bp reads, made together by two make_fixture
+    processes; (b) on each, in this process, the default cuda CLI,
+    --pallas-algo striped, --genotyper cuda and --pairhmm native, each VCF
+    byte-identical to native's, and --pairhmm diag on a LONG_WINDOW window
+    identical to native's on it; each run's wall_s, bucket_counts and
+    kernel launches printed; the default run must launch the entry at the
+    ppe r_pad and the striped run group at the striped r_pad; (c) the entry
+    against its plain version on the first unit the default run launched
+    at each (r_pad, c_pad, source) (recording_front_units); (d) the fuzzer
+    on LONG_FUZZ through LONG_FUZZ_ARMS, each seed identical; (e) a 300 bp
+    run through --pairhmm shardmap raises the bucket ValueError, as the
+    JAX package's sharded step does.  -> {"units": the (c) rows,
+    "striped_groups": the striped runs' long-read groups by shape}."""
+    from gatk_hc_tpu_torch.tools import fuzz_differential as fz
+
+    t_phase = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gatk_hc_tpu_torch.tools.make_fixture",
+         os.path.join(tmp, name), "--length", str(length), "--read-length",
+         str(read_len), "--name", name], cwd=ROOT, stdout=subprocess.DEVNULL)
+        for name, length, read_len, _p, _s in LONG_READS]
+    for proc in procs:
+        if proc.wait(timeout=600) != 0:
+            raise RuntimeError(f"make_fixture exited {proc.returncode}")
+    gen_s = time.perf_counter() - t_phase
+
+    units, striped_groups = [], {}
+    for name, length, read_len, ppe_r, striped_r in LONG_READS:
+        fix = os.path.join(tmp, name)
+        base = ["-I", os.path.join(fix, f"{name}.sam"),
+                "-R", os.path.join(fix, f"{name}.fa")]
+        window = ["-L", f"{name}:{length // 2}-{length // 2 + LONG_WINDOW}"]
+        runs = {run: flags for run, (flags, *_rest) in LONG_RUNS.items()}
+        runs["diag"] = ["--pairhmm", "diag"] + window
+        runs["native_window"] = ["--pairhmm", "native"] + window
+        done, vcfs, record = {}, {}, None
+        for run, flags in runs.items():
+            vcf = os.path.join(tmp, f"{name}.{run}.vcf")
+            recording = (recording_front_units() if run == "cuda"
+                         else contextlib.nullcontext())
+            with recording as rec:
+                stats = run_cli(base + ["-O", vcf] + flags)
+            record = record or rec
+            with open(vcf, "rb") as handle:
+                vcfs[run] = handle.read()
+            done[run] = stats
+        identical = {run: vcfs[run] == vcfs["native"] for run in LONG_RUNS}
+        identical["diag"] = vcfs["diag"] == vcfs["native_window"]
+        entry_units = {f"{r}x{c}:{path}": n
+                       for (r, c, path), n in sorted(record["units"].items())}
+        emit({"phase": "long_reads", "fixture": name, "length": length,
+              "read_length": read_len, "identical_to_native": identical,
+              "regions": done["native"]["regions"],
+              "variants": done["native"]["variants"],
+              "window_regions": done["native_window"]["regions"],
+              "entry_units": entry_units,
+              **{run: {"wall_s": s["wall_s"],
+                       "bucket_counts": s.get("bucket_counts"),
+                       "kernel_launches": {k: n for k, n
+                                           in s["launches"].items() if n},
+                       "dispatch_profile": s.get("dispatch_profile")}
+                 for run, s in done.items()}})
+        if not all(identical.values()):
+            raise AssertionError(f"{name}: VCFs differ from native's "
+                                 f"{identical}")
+        for run, (_flags, must, may, labels) in LONG_RUNS.items():
+            if must:
+                check_run(f"{name} {run}", done[run], must, may, labels)
+        if {k: n for k, n in done["diag"]["launches"].items() if n}:
+            raise AssertionError(f"{name} diag launched kernels")
+        if not any(r == ppe_r for r, _c, _p in record["units"]):
+            raise AssertionError(f"{name} cuda: no unit at r_pad {ppe_r}: "
+                                 f"{entry_units}")
+        groups = done["striped"].get("bucket_counts") or {}
+        long_groups = {k: n for k, n in groups.items()
+                       if int(k.split("x")[0]) == striped_r}
+        if not long_groups:
+            raise AssertionError(f"{name} striped: no group at r_pad "
+                                 f"{striped_r}: {groups}")
+        striped_groups.update(long_groups)
+        for key in sorted(record["inputs"]):
+            units.append(front_unit_row(f"{name} cuda", key,
+                                        record["units"][key],
+                                        record["inputs"][key]))
+
+    t_fuzz = time.perf_counter()
+    runners = fz.ArmRunners("cuda")
+    keep = os.path.join(tmp, "long_fuzz_failures")
+    for read_len, seeds in LONG_FUZZ:
+        for seed in seeds:
+            row = fz.run_seed(seed, keep, LONG_FUZZ_ARMS, runners=runners,
+                              read_len=read_len)
+            emit({"phase": "long_reads_fuzz", **row})
+            if not row["ok"]:
+                raise AssertionError(f"fuzz seed {seed} at {read_len} bp: "
+                                     f"{row['differ']} differ from native")
+            for arm in LONG_FUZZ_ARMS[1:]:
+                must, may = FUZZ_LAUNCHES[arm]
+                launched = set(row["device"][arm]["kernel_launches"])
+                if not must <= launched <= may:
+                    raise AssertionError(
+                        f"fuzz seed {seed} at {read_len} bp arm {arm}: "
+                        f"launched {launched}, expected {must} <= it <= {may}")
+            if not any(int(k.split("x")[0]) > 224
+                       for k in row["device"]["cuda"]["buckets"]):
+                raise AssertionError(f"fuzz seed {seed} at {read_len} bp: "
+                                     f"cuda buckets {row['device']['cuda']}")
+    fuzz_s = time.perf_counter() - t_fuzz
+
+    name, length = LONG_READS[1][:2]
+    fix = os.path.join(tmp, name)
+    try:
+        run_cli(["-I", os.path.join(fix, f"{name}.sam"),
+                 "-R", os.path.join(fix, f"{name}.fa"),
+                 "-O", os.path.join(tmp, f"{name}.shardmap.vcf"),
+                 "--pairhmm", "shardmap",
+                 "-L", f"{name}:{length // 2}-{length // 2 + 2000}"])
+    except ValueError as exc:
+        shardmap_error = str(exc)
+    else:
+        shardmap_error = None
+    emit({"phase": "long_reads_summary", "fixture_gen_s": round(gen_s, 1),
+          "fuzz_s": round(fuzz_s, 1), "shardmap_error": shardmap_error,
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    if not shardmap_error or "exceeds largest bucket 224" not in shardmap_error:
+        raise AssertionError("300 bp reads through --pairhmm shardmap: "
+                             f"expected the bucket ValueError, got "
+                             f"{shardmap_error!r}")
+    return {"units": units, "striped_groups": striped_groups}
+
+
 def fresh_process(args, env=None, timeout_s=900):
     """``python args...`` in a fresh process from the checkout's root ->
     (its wall in s, its stdout lines).  Raises when it fails."""
@@ -1762,6 +1998,14 @@ def phase_cold(tmp, contig_default):
         raise AssertionError(f"chrM on the warmed cache: {init}")
 
 
+def long_read_unit(row):
+    """A phase_long_reads unit as a field of the kernels line."""
+    keys = ("run", "r_pad", "c_pad", "source", "B", "rows_per_lane",
+            "stripes", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by")
+    return {k: row[k] for k in keys}
+
+
 def main() -> int:
     import torch
 
@@ -1784,6 +2028,7 @@ def main() -> int:
         contig_launches, contig_tiles, contig_default = phase_contig(tmp)
         phase_multi(tmp)
         phase_tools(tmp, contig_default)
+        long_reads = phase_long_reads(tmp)
         phase_cold(tmp, contig_default)
     # the genotype kernel at the tiles its main-path runs gave it: the
     # kernels line reports each instance at its run's most common shape
@@ -1815,6 +2060,11 @@ def main() -> int:
                       "c_pad": rep["c_pad"]},
             **{k: rep[k] for k in LAUNCH_KEYS if k in rep},
         })
+        if name == "ppe4":  # the default instance: phase_long_reads' units
+            lines[-1]["long_read_units"] = [
+                long_read_unit(u) for u in long_reads["units"]]
+        elif name == "striped32":
+            lines[-1]["long_read_groups"] = long_reads["striped_groups"]
     for path in FRONTS:
         name = f"ppe_front_{path}"
         rows = [v for (k, *_rest), v in fronts.items() if k == name]
@@ -1829,6 +2079,9 @@ def main() -> int:
             "library_ms": None,
             "shape": {"B": rep["B"], "r_pad": rep["r_pad"],
                       "c_pad": rep["c_pad"]},
+            "long_read_units": [long_read_unit(u)
+                                for u in long_reads["units"]
+                                if u["source"] == path],
         })
     for name, main in main_tiles.items():
         rows = [v for (k, *_rest), v in genotypes.items() if k == name]

@@ -219,19 +219,10 @@ def main(argv=None) -> int:
         shutdown()  # leave the process group, on errors too
 
 
-def _run(args) -> int:
-    pairhmm = args.pairhmm
-    if pairhmm == "auto":
-        import os
-
-        from .config import resolve_auto_pairhmm_engine
-
-        try:
-            sam_bytes = os.path.getsize(args.input)
-        except OSError:
-            sam_bytes = 0  # a missing input errors out later as usual
-        pairhmm = resolve_auto_pairhmm_engine(sam_bytes, args.device)
-    cfg = dataclasses.replace(
+def config_from_args(args, pairhmm: str):
+    """The run's config: DEFAULT_CONFIG (with its GATK_HC_TPU_TORCH_*
+    overrides) under the parsed flags, with the resolved PairHMM engine."""
+    return dataclasses.replace(
         DEFAULT_CONFIG,
         pairhmm_engine=pairhmm,
         assembler_engine=args.assembler,
@@ -247,11 +238,28 @@ def _run(args) -> int:
         stripe_height=args.stripe_height,
         ppe_rows=args.ppe_rows,
         dispatch_mode=args.dispatch_mode,
-        packed_nib=not args.no_packed_nib,
+        # the flags turn off what the defaults (or their
+        # GATK_HC_TPU_TORCH_* overrides) turn on
+        packed_nib=DEFAULT_CONFIG.packed_nib and not args.no_packed_nib,
         fuse_groups=args.fuse_groups,
-        fuse_auto=not args.no_fuse_auto,
+        fuse_auto=DEFAULT_CONFIG.fuse_auto and not args.no_fuse_auto,
         device_timeout_s=args.device_timeout,
     )
+
+
+def _run(args) -> int:
+    pairhmm = args.pairhmm
+    if pairhmm == "auto":
+        import os
+
+        from .config import resolve_auto_pairhmm_engine
+
+        try:
+            sam_bytes = os.path.getsize(args.input)
+        except OSError:
+            sam_bytes = 0  # a missing input errors out later as usual
+        pairhmm = resolve_auto_pairhmm_engine(sam_bytes, args.device)
+    cfg = config_from_args(args, pairhmm)
     if args.dump_graph is not None:
         return _dump_graph(args, cfg)
 
@@ -385,8 +393,11 @@ def _run(args) -> int:
         if age == age:  # not NaN
             stats["process_age_s"] = round(age, 3)
             stats["pre_main_s"] = round(age - elapsed, 3)
-        if runner is not None:
-            inner = runner.runner
+        # the runner once its build has ended without error, never waiting
+        # for it: a run that submitted no PairHMM job does not join the
+        # build (as the reference's getattr(runner, "_runner", None))
+        inner = runner.built() if runner is not None else None
+        if inner is not None:
             # cold start: runner construction, kernel build + load, warm-up
             # launches, first submit / drain
             if inner.init_profile:
@@ -395,6 +406,13 @@ def _run(args) -> int:
             # every count, so nothing is merged
             if inner.dispatch_counts:
                 stats["dispatch_profile"] = dict(inner.dispatch_counts)
+            # groups by padded shape "r_padxc_pad" (the shapes the kernels
+            # ran at; the port launches exact sizes, so it has no program
+            # signatures to log as the reference's GATK_HC_TPU_LOG_PROGRAMS)
+            buckets = getattr(inner, "bucket_counts", None)
+            if buckets:
+                stats["bucket_counts"] = {
+                    f"{r}x{c}": n for (r, c), n in sorted(buckets.items())}
             # stage medians (ms): the caller's time in submit, host pack,
             # H2D, gather (striped only), kernel, D2H (per submit) and host
             # finalize, with their sums

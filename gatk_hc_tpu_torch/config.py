@@ -12,10 +12,50 @@ truth and tests can vary them.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 # fuse widths the reference package allows (gatk_hc_tpu/config.py)
 FUSE_GROUPS = (1, 2, 3, 4, 6, 8, 16)
+
+# Environment overrides of seven defaults below: the reference package's
+# (gatk_hc_tpu/config.py), named GATK_HC_TPU_TORCH_* instead of
+# GATK_HC_TPU_*, so that one environment can set the two packages apart.
+# A bad value raises at import, naming the variable, instead of silently
+# keeping the default.
+
+
+def _env_choice(name: str, default: str, choices: Tuple[str, ...]) -> str:
+    value = os.environ.get(name, default)
+    if value not in choices:
+        raise ValueError(f"{name}={value!r}: expected one of {choices}")
+    return value
+
+
+def _env_float(name: str, default: float, minimum: float = 0.0) -> float:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        value = float(raw)
+    except ValueError as exc:
+        raise ValueError(f"{name}={raw!r}: expected a number") from exc
+    if not value >= minimum:  # NaN fails too
+        raise ValueError(f"{name}={value}: must be >= {minimum}")
+    return value
+
+
+def _env_int_choice(name: str, default: int, choices: Tuple[int, ...]) -> int:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        value = int(raw)
+    except ValueError as exc:
+        raise ValueError(f"{name}={raw!r}: expected an integer") from exc
+    if value not in choices:
+        raise ValueError(f"{name}={value}: expected one of {choices}")
+    return value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,14 +178,18 @@ class HCConfig:
     # holds (it holds max(NR, ceil(r_pad / 32)), at most 8).  Every value
     # computes bit-identical results; a padded read length that is not a
     # multiple of it drops to the largest that divides it.
-    ppe_rows: int = 4
+    ppe_rows: int = _env_int_choice(
+        "GATK_HC_TPU_TORCH_PPE_ROWS", 4, (1, 2, 4, 8)
+    )
     # PairHMM kernel of the cuda engine: "ppe" (csrc/pairhmm_ppe.cu, one
     # warp per pair) or "striped" (csrc/pairhmm_striped.cu, stripe_height
     # lanes per pair, each holding K read rows).  Both compute the same
     # result bit for bit; padded read lengths round up to a multiple of
     # stripe_height on the striped path.  The names and defaults are the
     # reference package's, so a reference config carries them across.
-    pallas_algo: str = "ppe"
+    pallas_algo: str = _env_choice(
+        "GATK_HC_TPU_TORCH_PALLAS_ALGO", "ppe", ("ppe", "striped")
+    )
     stripe_height: int = 32
     # Host-side region pipeline threads (prepare + assemble + job packing
     # run in a pool; ctypes releases the GIL, so this scales with cores —
@@ -180,24 +224,35 @@ class HCConfig:
     # measured winner (DispatchPathController).  Every encoding gives the
     # same bits.  The forced modes, packed_nib=False and fuse_auto=False
     # are for tests and diagnostics: no measured workload favours one yet.
-    dispatch_mode: str = "adaptive"
+    dispatch_mode: str = _env_choice(
+        "GATK_HC_TPU_TORCH_DISPATCH", "adaptive",
+        ("adaptive", "planes", "packed"),
+    )
     # The nib encoding on single-chunk packed groups whose alphabets fit
     # (<= 8 read bytes, <= 32 quality bytes); others ship raw packed.
-    packed_nib: bool = True
+    packed_nib: bool = _env_choice(
+        "GATK_HC_TPU_TORCH_PACKED_NIB", "1", ("0", "1")
+    ) == "1"
     # Fuse up to N same-path single-chunk groups of one (r_pad, c_pad)
     # into ONE copy and ONE kernel launch (bit-identical per group); 1 =
     # off.
-    fuse_groups: int = 4
+    fuse_groups: int = _env_int_choice(
+        "GATK_HC_TPU_TORCH_FUSE_GROUPS", 4, FUSE_GROUPS
+    )
     # True: fuse only while the dispatch controller measures a deeply
     # degraded phase (per-pair cost > 6x its best); False: always fuse
     # when fuse_groups > 1.
-    fuse_auto: bool = True
+    fuse_auto: bool = _env_choice(
+        "GATK_HC_TPU_TORCH_FUSE_AUTO", "1", ("0", "1")
+    ) == "1"
     # Device-wedge check: when resolving a submitted batch, waiting for its
     # results or waiting for the kernel build passes this many seconds AND
     # a fresh probe of the card cannot finish, the runner raises
     # DeviceWedgedError (the reference fails over to its C++ engine; the
     # port never moves the card's work to the CPU).  0 waits forever.
-    device_timeout_s: float = 1200.0
+    device_timeout_s: float = _env_float(
+        "GATK_HC_TPU_TORCH_DEVICE_TIMEOUT", 1200.0
+    )
 
     def __post_init__(self) -> None:
         if self.genotyper_engine not in ("host", "cuda"):

@@ -230,7 +230,16 @@ def _register_exit_wait(wait_fn) -> None:
     with _EXIT_LOCK:
         if not _EXIT_WAITERS:
             import atexit
+            import weakref
 
+            # weakref.finalize registers its exit hook with its first
+            # finalizer.  A torch import that first creates one while exit
+            # waits here (a short run that ends as the build thread imports
+            # torch) registers it too late to run, and torch.library's
+            # finalizers then fire during module teardown, on cleared
+            # globals.  One finalizer now registers the hook first, so it
+            # runs after this wait (atexit is last in, first out).
+            weakref.finalize(_join_device_threads, lambda: None)
             atexit.register(_join_device_threads)
         _EXIT_WAITERS.append(wait_fn)
 
@@ -379,6 +388,12 @@ class BackgroundRunner:
     def runner(self):
         """The built runner (joins the build)."""
         return self._get()
+
+    def built(self):
+        """The runner if its build has ended without error, else None;
+        never waits for the build (the counterpart of the reference's
+        ``getattr(runner, "_runner", None)``)."""
+        return self._runner if self._exc is None else None
 
     def submit(self, jobs):
         return self._get().submit(jobs)

@@ -33,12 +33,17 @@ without one and never fall back) or, with ``--device cpu``, through the
 kernels' plain PyTorch versions.  A divergence copies the fixture and every
 arm's VCF to --keep-dir and exits 1.  Seed N draws the same genome as the
 JAX package's tools/fuzz_differential.py; ``--length`` / ``--depth``
-override the draw only to shrink a genome for a CPU run.
+override the draw only to shrink a genome for a CPU run.  ``--read-length``
+(default 151, not drawn) makes the reads longer: past the largest read
+bucket (224) the ppe kernel runs in stripes with a carry, and the default
+arms drop shardmap, whose bucketed planes raise there in both packages (an
+explicit ``--arms shardmap`` runs it and fails with that error).
 
 Usage: python -m gatk_hc_tpu_torch.tools.fuzz_differential --start 1000 --count 50
        python -m gatk_hc_tpu_torch.tools.fuzz_differential --minutes 30
        python -m gatk_hc_tpu_torch.tools.fuzz_differential --device cpu \\
            --length 3000 --depth 8 --arms python,native,cuda --count 2
+       python -m gatk_hc_tpu_torch.tools.fuzz_differential --read-length 250
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ from typing import Dict, Optional, Sequence
 from ..config import DEFAULT_CONFIG, HCConfig
 from ..io.fasta import FastaRecord, write_fasta
 from ..models.caller import call, call_batched
-from .make_fixture import make_reference, plant_variants, simulate_reads
+from .make_fixture import (READ_LEN, make_reference, plant_variants,
+                           simulate_reads)
 
 BASE_ARMS = ("python", "native", "native_mt", "stream", "stream_mt")
 DEVICE_ARMS = ("cuda", "cuda_striped", "cuda_stream_mt", "diag", "shardmap",
@@ -80,7 +86,22 @@ def draw(seed: int) -> dict:
             "contigs": n_contigs, "profile": profile}
 
 
-def write_fixture(dirpath, seed, length, depth, n_contigs=1, profile="uniform"):
+# arms that cannot run reads past the largest read bucket, and why
+LONG_READ_DROPS = {
+    "shardmap": "reads past the largest read bucket raise in both packages",
+}
+
+
+def default_arms(read_len: int = READ_LEN) -> tuple:
+    """-> (the arms run when none are named, {dropped arm: why})."""
+    if read_len <= max(DEFAULT_CONFIG.read_pad_buckets):
+        return ARMS, {}
+    return (tuple(a for a in ARMS if a not in LONG_READ_DROPS),
+            dict(LONG_READ_DROPS))
+
+
+def write_fixture(dirpath, seed, length, depth, n_contigs=1, profile="uniform",
+                  read_len=READ_LEN):
     rng = random.Random(seed)
     records, all_lines = [], []
     for c in range(n_contigs):
@@ -89,7 +110,8 @@ def write_fixture(dirpath, seed, length, depth, n_contigs=1, profile="uniform"):
         alt, _truth, anchors = plant_variants(rng, ref, profile=profile)
         records.append(FastaRecord(name, "fuzz fixture", ref))
         all_lines.append(
-            simulate_reads(rng, name, ref, alt, depth=depth, anchors=anchors)
+            simulate_reads(rng, name, ref, alt, depth=depth, anchors=anchors,
+                           read_len=read_len)
         )
     fa = os.path.join(dirpath, f"fuzz{seed}.fa")
     write_fasta(fa, records)
@@ -184,18 +206,23 @@ def _delta(after: dict, before: dict) -> dict:
             if n - before.get(k, 0)}
 
 
-def run_seed(seed: int, keep_dir: str, arms: Sequence[str] = ARMS,
+def run_seed(seed: int, keep_dir: str, arms: Optional[Sequence[str]] = None,
              length: Optional[int] = None, depth: Optional[int] = None,
              device: str = "cuda", runners: Optional[ArmRunners] = None,
-             workdir: Optional[str] = None) -> dict:
-    """Every arm of ``arms`` on seed's genome; ok when each VCF equals the
-    first arm's byte for byte.  A divergence copies the fixture and the
+             workdir: Optional[str] = None,
+             read_len: int = READ_LEN) -> dict:
+    """Every arm of ``arms`` (default: ``default_arms(read_len)``) on
+    seed's genome with reads of ``read_len`` bases; ok when each VCF equals
+    the first arm's byte for byte.  A divergence copies the fixture and the
     VCFs to ``keep_dir``/seed<N>.  ``workdir``: where the fixture and VCFs
     are written and left (default: a temporary directory, removed).  ->
     the seed's JSON report, with each device arm's kernel launches, bucket
-    shapes and dispatch labels."""
+    shapes and dispatch labels, and the default arms it dropped."""
     from ..ops import pairhmm_torch as pt
 
+    dropped = {}
+    if arms is None:
+        arms, dropped = default_arms(read_len)
     genome = draw(seed)
     genome["length"] = length or genome["length"]
     genome["depth"] = depth or genome["depth"]
@@ -204,7 +231,7 @@ def run_seed(seed: int, keep_dir: str, arms: Sequence[str] = ARMS,
     tmp = workdir or tempfile.mkdtemp(prefix=f"fuzzdiff{seed}_")
     try:
         sam, fa = write_fixture(tmp, seed, genome["length"], genome["depth"],
-                                n_contigs, genome["profile"])
+                                n_contigs, genome["profile"], read_len)
         vcfs, seconds, device_runs = {}, {}, {}
         for arm in arms:
             out = os.path.join(tmp, f"{arm}.vcf")
@@ -235,13 +262,16 @@ def run_seed(seed: int, keep_dir: str, arms: Sequence[str] = ARMS,
             os.makedirs(keep_dir, exist_ok=True)
             shutil.copytree(tmp, os.path.join(keep_dir, f"seed{seed}"),
                             dirs_exist_ok=True)
-        return {
-            "seed": seed, **genome,
+        report = {
+            "seed": seed, **genome, "read_length": read_len,
             "variants": sum(1 for line in baseline.splitlines()
                             if not line.startswith(b"#")),
             "ok": not differ, "differ": differ, "arm_s": seconds,
             "device": device_runs,
         }
+        if dropped:
+            report["dropped"] = dropped
+        return report
     finally:
         if workdir is None:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -254,9 +284,10 @@ def main(argv=None) -> None:
     ap.add_argument("--minutes", type=float, default=0.0, help="0 = unbounded")
     ap.add_argument("--keep-dir", default=os.path.join(
         tempfile.gettempdir(), "fuzz_differential_failures"))
-    ap.add_argument("--arms", default=",".join(ARMS),
+    ap.add_argument("--arms", default=None,
                     help="comma-separated arms; every VCF must equal the "
-                    f"first one's (default: all, {','.join(ARMS)})")
+                    f"first one's (default: all, {','.join(ARMS)}; without "
+                    "shardmap past the largest read bucket)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the device arms run: the card (default) or "
                     "the CPU through the kernels' plain versions")
@@ -265,10 +296,15 @@ def main(argv=None) -> None:
                     "shrink a genome for a CPU run)")
     ap.add_argument("--depth", type=int, default=None,
                     help="depth instead of the seed's draw")
+    ap.add_argument("--read-length", type=int, default=READ_LEN,
+                    help="bases per read (default %(default)s; not drawn, "
+                    "so a seed's genome is the reference's)")
     args = ap.parse_args(argv)
-    arms = [a for a in args.arms.split(",") if a]
-    unknown = sorted(set(arms) - set(ARMS))
-    if unknown or not arms:
+    arms = None if args.arms is None else [a for a in args.arms.split(",")
+                                           if a]
+    names = default_arms(args.read_length)[0] if arms is None else arms
+    unknown = sorted(set(names) - set(ARMS))
+    if unknown or not names:
         ap.error(f"unknown arms {unknown}; choose from {','.join(ARMS)}")
 
     runners = ArmRunners(args.device)
@@ -282,7 +318,7 @@ def main(argv=None) -> None:
         if deadline and time.time() > deadline:
             break
         r = run_seed(seed, args.keep_dir, arms, args.length, args.depth,
-                     args.device, runners)
+                     args.device, runners, read_len=args.read_length)
         total_variants += r["variants"]
         print(json.dumps(r), flush=True)
         if not r["ok"]:
@@ -292,7 +328,8 @@ def main(argv=None) -> None:
         done += 1
     print(json.dumps({
         "fuzz_ok": True, "seeds": done, "first": args.start,
-        "total_variants": total_variants, "arms": arms,
+        "total_variants": total_variants, "arms": list(names),
+        "read_length": args.read_length,
         "device": args.device,
     }))
 

@@ -6,11 +6,13 @@ bundles no data, so the fixture is synthesized deterministically:
 * a random 16,569bp "chrM" contig (the real chrM length), fixed seed;
 * a diploid donor: haplotype A = reference, haplotype B = reference with
   planted SNPs/insertions/deletions at known spacing;
-* paired-end-style 151bp reads sampled uniformly with sequencing errors,
-  Phred-encoded qualities, and proper SAM fields (FLAG/RNEXT='='/TLEN).
+* paired-end-style 151bp reads (``--read-length`` for longer runs: 250
+  for 2x250 kits, 300 for MiSeq 2x300) sampled uniformly with sequencing
+  errors, Phred-encoded qualities, and proper SAM fields
+  (FLAG/RNEXT='='/TLEN).
 
 Usage:  python -m gatk_hc_tpu_torch.tools.make_fixture [outdir] [--depth N]
-        [--length L] [--contigs N]
+        [--length L] [--contigs N] [--read-length R]
 """
 
 from __future__ import annotations
@@ -141,6 +143,7 @@ def simulate_reads(
     depth: int,
     error_rate: float = 0.001,
     anchors=None,
+    read_len: int = READ_LEN,
 ):
     """Sample reads from both haplotypes; yields SAM lines sorted by POS.
 
@@ -152,15 +155,15 @@ def simulate_reads(
 
     reads = []
     genome_len = len(hap_a)
-    n_reads = depth * genome_len // READ_LEN
+    n_reads = depth * genome_len // read_len
     alt_offsets = [a for a, _ in anchors] if anchors else None
     for i in range(n_reads):
         use_alt = rng.random() >= 0.5
         hap = hap_b if use_alt else hap_a
-        start = rng.randint(0, len(hap) - READ_LEN)
-        bases = list(hap[start : start + READ_LEN])
+        start = rng.randint(0, len(hap) - read_len)
+        bases = list(hap[start : start + read_len])
         quals = []
-        for j in range(READ_LEN):
+        for j in range(read_len):
             q = rng.randint(28, 40)
             quals.append(chr(q + 33))
             if rng.random() < error_rate:
@@ -178,8 +181,8 @@ def simulate_reads(
         reads.append(
             (
                 pos,
-                f"sim{i:06d}\t{flag}\t{contig}\t{pos}\t60\t{READ_LEN}M\t=\t"
-                f"{mate_pos}\t{mate_pos - pos + READ_LEN}\t"
+                f"sim{i:06d}\t{flag}\t{contig}\t{pos}\t60\t{read_len}M\t=\t"
+                f"{mate_pos}\t{mate_pos - pos + read_len}\t"
                 f"{''.join(bases)}\t{''.join(quals)}",
             )
         )
@@ -192,11 +195,12 @@ def _write_contig(job):
     the reads' SAM lines written to ``part`` -> (record, reads, variants).
     Each contig draws from its own ``random.Random(seed)``, so contigs made
     in separate processes give the same bytes as in one."""
-    name, seed, length, depth, profile, part = job
+    name, seed, length, depth, profile, read_len, part = job
     rng = random.Random(seed)
     ref = make_reference(rng, length, profile=profile)
     alt, variants, anchors = plant_variants(rng, ref, profile=profile)
-    sam_lines = simulate_reads(rng, name, ref, alt, depth, anchors=anchors)
+    sam_lines = simulate_reads(rng, name, ref, alt, depth, anchors=anchors,
+                               read_len=read_len)
     with open(part, "w") as handle:
         for line in sam_lines:
             handle.write(line + "\n")
@@ -226,6 +230,13 @@ def main(argv=None) -> None:
         " into one FASTA/SAM — the whole-genome-shaped multi-contig workload"
         " for streaming/multihost benchmarks (BASELINE config 5)",
     )
+    parser.add_argument(
+        "--read-length",
+        type=int,
+        default=READ_LEN,
+        help="bases per read (default %(default)s; 250 and 300 make the"
+        " long-read inputs that pad past the largest read bucket)",
+    )
     args = parser.parse_args(argv)
 
     names = (
@@ -236,7 +247,7 @@ def main(argv=None) -> None:
     os.makedirs(args.outdir, exist_ok=True)
     jobs = [
         (name, args.seed + i, args.length, args.depth, args.profile,
-         os.path.join(args.outdir, f".{name}.part.sam"))
+         args.read_length, os.path.join(args.outdir, f".{name}.part.sam"))
         for i, name in enumerate(names)
     ]
     try:

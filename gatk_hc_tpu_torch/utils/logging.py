@@ -11,7 +11,7 @@ profiling hooks (PairWiseSW.h PERF_DEBUG).  Here:
 * ``RunCounters`` tracks regions/reads/pairs/cell-updates/variants and
   renders a one-line JSON summary (the CLI --stats source of truth);
 * ``trace_annotation`` / ``maybe_profile`` wrap torch.profiler when
-  profiling is enabled (GATK_HC_TORCH_PROFILE_DIR env): the whole run is
+  profiling is enabled (GATK_HC_TPU_TORCH_PROFILE_DIR env): the whole run is
   traced on the host and the card and written as a Chrome trace.
 """
 
@@ -146,7 +146,7 @@ class HCLogger:
 
 NULL_LOGGER = HCLogger(verbosity=0)
 
-PROFILE_DIR = os.environ.get("GATK_HC_TORCH_PROFILE_DIR")
+PROFILE_DIR = os.environ.get("GATK_HC_TPU_TORCH_PROFILE_DIR")
 
 
 @contextlib.contextmanager
@@ -160,7 +160,7 @@ def trace_annotation(name: str):
 
 @contextlib.contextmanager
 def maybe_profile():
-    """Whole-run host + CUDA profile when GATK_HC_TORCH_PROFILE_DIR is set;
+    """Whole-run host + CUDA profile when GATK_HC_TPU_TORCH_PROFILE_DIR is set;
     the trace lands in that directory as trace.json (chrome://tracing)."""
     if not PROFILE_DIR:
         yield

@@ -15,10 +15,13 @@ import stat
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 
 import pytest
 
 from gatk_hc_tpu import cli as ref_cli
+from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
 from gatk_hc_tpu_torch.ops import _kernels
 from gatk_hc_tpu_torch.ops import runner as runner_mod
 from gatk_hc_tpu_torch.ops import torch_runner
@@ -175,6 +178,59 @@ def test_runner_names_resolve(name):
 def test_runner_unknown_name_raises():
     with pytest.raises(AttributeError, match="no_such_name"):
         runner_mod.no_such_name  # noqa: B018
+
+
+def test_background_runner_built_never_waits(monkeypatch):
+    """built() returns None at once while the build runs and after it
+    raised (submit still raises the build's error), and the runner once
+    a build ended without error."""
+    release = threading.Event()
+
+    class SlowBrokenRunner:
+        def __init__(self, cfg, *a, **k):
+            release.wait(30)
+            raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(runner_mod, "TorchPairHMMRunner", SlowBrokenRunner)
+    bg = runner_mod.BackgroundRunner(DEFAULT_CONFIG, device="cpu")
+    t0 = time.perf_counter()
+    assert bg.built() is None
+    assert time.perf_counter() - t0 < 1.0 and bg._thread.is_alive()
+    release.set()
+    bg._thread.join(30)
+    assert bg.built() is None
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bg.submit([])
+    monkeypatch.undo()
+
+    good = runner_mod.BackgroundRunner(DEFAULT_CONFIG, device="cpu")
+    inner = good.runner  # joins the build
+    assert inner is not None and good.built() is inner
+    good.stop_prewarm()
+
+
+def test_stats_without_jobs_skip_a_failed_build(tmp_path):
+    """--pairhmm cuda --device cuda --stats with no card, on a window with
+    no PairHMM job: the run never joins the failed build, exits 0 with the
+    header-only VCF and no runner stats, and the build thread's torch
+    import leaves no teardown tracebacks at exit."""
+    out = tmp_path / "empty.vcf"
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "gatk_hc_tpu_torch.cli", "-I", SAM, "-R",
+         FASTA, "-O", str(out), "-L", "chrM:16500-16569", "--pairhmm",
+         "cuda", "--device", "cuda", "--stats"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    stats = json.loads(proc.stdout.splitlines()[0])
+    assert stats["regions"] == 1 and stats["variants"] == 0
+    for key in ("init_profile", "dispatch_profile", "device_stages_ms",
+                "cuda_max_memory_allocated_mb", "kernel_launches"):
+        assert key not in stats, key
+    lines = out.read_text().splitlines()
+    assert lines and all(line.startswith("#") for line in lines)
+    assert "Exception ignored" not in proc.stderr
+    assert "Traceback" not in proc.stderr
 
 
 # -- the kernel cache ----------------------------------------------------
