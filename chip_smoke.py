@@ -36,7 +36,12 @@ shardmap on a 2x2 grid of the card, genotyper_cuda) on seven seeded
 genomes of 1-3 contigs, byte-identical per seed; a 4 x 500 kb fixture
 through --stream-contigs with the cuda runner, unstreamed and native
 (identical, with check_truth's sensitivity); and host_profile (the device
-stubbed out) on the 2 Mb contig beside the default run's stages.  Last,
+stubbed out) on the 2 Mb contig beside the default run's stages.  Then the
+port's measurement tools (phase_bench) at full width on the reference's
+workload: tools/bench.py (every arm bit-equal, its first job equal to the
+ppe kernel's plain version on the card, chrM golden), kernel_bench.py
+(the seven PairHMM instances, each launched), sustained_sweep.py,
+genotyper_bench.py and scaling_bench.py, each JSON line parsed.  Last,
 the cold start (phase_cold), each run a fresh process: ``import torch``
 alone; chrM through --pairhmm native, which never loads torch; the 2 Mb
 contig through the default cuda CLI twice (torch imported on the
@@ -65,14 +70,16 @@ import sys
 import tempfile
 import time
 
+# the timing, the bounds' peaks and the card's header are the port's
+# measurement tools' (gatk_hc_tpu_torch/tools/_timing.py): outside a
+# checkout this import fails and the script exits non-zero
+from gatk_hc_tpu_torch.tools._timing import (
+    PEAK_F32_FLOPS, PEAK_F64_FLOPS, PEAK_HBM_BYTES, nvidia_smi, ppe_bound,
+    time_ms, time_ms_queued,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): f32 and f64 outside
-# the tensor cores (an FMA counted as two operations) and HBM bandwidth,
-# used for each kernel's least time.
-PEAK_F32_FLOPS = 67e12
-PEAK_F64_FLOPS = 34e12
-PEAK_HBM_BYTES = 3.35e12
 PPE_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_ppe.cu"
 PPE_REPLACES = {
     1: "gatk_hc_tpu/ops/pairhmm_pallas.py:176",
@@ -121,15 +128,6 @@ KERNEL_NAMES = tuple(
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def phase_card():
@@ -276,26 +274,6 @@ def make_pairs(rng, B, r_pad, c_pad):
     return read, qual, rlen, hap, clen
 
 
-def ppe_bound(rlen, clen, c_pad):
-    """The least time of one ppe launch on these pairs, in ms, and what
-    sets it.  Operations: the f32 work the function needs, 8 multiplies +
-    4 adds per true cell, 2 adds per column of row rlen (its M and X summed
-    in column order) and 1 add per pair; over the f32 peak.  Bytes: each
-    pair's rlen rows of the three read planes, clen hap masks, rlen, clen
-    and init_y read once, its result written once; over HBM bandwidth."""
-    import numpy as np
-
-    rl = np.asarray(rlen, np.int64)
-    cl = np.minimum(np.asarray(clen, np.int64), c_pad)
-    B = rl.size
-    ops = 12 * int(rl @ cl) + 2 * int(cl.sum()) + B
-    nbytes = 4 * (3 * int(rl.sum()) + int(cl.sum()) + 3 * B) + 4 * B
-    bound_s = {"bytes": nbytes / PEAK_HBM_BYTES,
-               "operations": ops / PEAK_F32_FLOPS}
-    by = max(bound_s, key=bound_s.get)
-    return 1e3 * bound_s[by], by
-
-
 def kernel_inputs(read, qual, rlen, hap, clen, device):
     """Pair-minor ppe inputs on ``device`` (the runner's plane tables)."""
     import numpy as np
@@ -314,42 +292,6 @@ def kernel_inputs(read, qual, rlen, hap, clen, device):
         to(rows.transpose(2, 0, 1)), to(mask[hap].T), to(rlen), to(clen),
         to(init_y),
     )
-
-
-def time_ms(fn, reps: int) -> float:
-    """Median ms of ``fn`` on the current stream, CUDA events, warmed up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def time_ms_queued(fn, reps: int) -> float:
-    """ms per call of ``fn`` run ``reps`` times back to back between two
-    CUDA events, warmed up: the host enqueues ahead of the card, so the
-    wrapper's own time hides behind the kernels' (``time_ms`` waits for
-    each call and counts it)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def striped_inputs(read, qual, rlen, hap, clen, device):
@@ -1610,6 +1552,152 @@ def phase_tools(tmp, contig_default):
         raise AssertionError(f"host_profile on 2 Mb: {prof}")
 
 
+def run_tool(module, argv, **kwargs):
+    """``module.main(argv)`` of one of the port's tools in this process ->
+    the JSON object of its last output line.  Raises when it exits
+    non-zero."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv, **kwargs)
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv} exited {rc}:\n"
+                             f"{out.getvalue()[-2000:]}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+# phase_bench: the slice of the bench job's first result held against the
+# plain version on the card (reads x all haps)
+BENCH_CHECK_READS = 64
+PAIRHMM_INSTANCES = tuple(f"ppe{nr}" for nr in PPE_REPLACES) + tuple(
+    f"striped{h}" for h in STRIPES)
+
+
+def bench_plain_slice(job_result, n_reads, device="cuda"):
+    """The first ``n_reads`` reads x every hap of the bench workload's job
+    through the ppe kernel's plain version on ``device`` (the card), then
+    finalized as the runner finalizes (sentinel or f64 rescue,
+    cfg.f64_rescue) -> (the runner's slice, the plain version's), log10
+    (n_reads, n_haps)."""
+    import numpy as np
+
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.ops.pairhmm_oracle import finalize_log10
+    from gatk_hc_tpu_torch.ops.pairhmm_torch import (
+        _host_f64_rescue, ppe_forward_plain, transition_constants,
+    )
+    from gatk_hc_tpu_torch.tools import bench
+
+    reads, haps = bench.make_workload()
+    r_pad, c_pad = REPORT_SHAPE
+    nh = len(haps)
+    B = n_reads * nh
+    read = np.zeros((B, r_pad), np.uint8)
+    qual = np.zeros((B, r_pad), np.uint8)
+    hap = np.zeros((B, c_pad), np.uint8)
+    for p in range(B):
+        b, q = reads[p // nh]
+        read[p, :len(b)], qual[p, :len(q)] = b, q
+        hap[p, :len(haps[p % nh])] = haps[p % nh]
+    rlen = np.full(B, bench.READ_LEN, np.int32)
+    clen = np.full(B, bench.HAP_LEN, np.int32)
+    trans = transition_constants(DEFAULT_CONFIG.gop_char,
+                                 DEFAULT_CONFIG.gcp_char)
+    raw = ppe_forward_plain(*kernel_inputs(read, qual, rlen, hap, clen,
+                                           device), trans)
+    pairs = np.arange(B)
+    plain = finalize_log10(
+        raw.cpu().numpy(),
+        lambda idx: _host_f64_rescue(DEFAULT_CONFIG, list(reads), haps,
+                                     pairs[idx] // nh, pairs[idx] % nh),
+        mode=DEFAULT_CONFIG.f64_rescue).reshape(n_reads, nh)
+    return job_result[:n_reads], plain
+
+
+def phase_bench():
+    """The port's measurement tools at full width on the card, each
+    through its main() (its JSON line parsed): tools/bench.py with two
+    rounds over every arm (bit-equal across arms, chrM golden, both CPU
+    divisors), its first job's results held against the ppe kernel's plain
+    version on the card (BENCH_CHECK_READS reads x 16 haps, bit for bit);
+    tools/kernel_bench.py over the seven PairHMM instances (bit-equal, each
+    launched: counts reset before, read after); tools/sustained_sweep.py,
+    one round over its fourteen arms (bit-equal; chunk arms say so);
+    tools/genotyper_bench.py, two rounds (serial == pipelined, f64 ==
+    host); tools/scaling_bench.py (counts past the visible cards "not
+    measured", the two-process chrM run).  The tools' numbers go on the
+    phase lines."""
+    import numpy as np
+
+    from gatk_hc_tpu_torch.ops import _kernels
+    from gatk_hc_tpu_torch.tools import (
+        bench, genotyper_bench, kernel_bench, scaling_bench, sustained_sweep,
+    )
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    first = []
+    row = run_tool(bench, ["--rounds", "2"], results=first)
+    runner_slice, plain = bench_plain_slice(first[0], BENCH_CHECK_READS)
+    plain_equal = bool(np.array_equal(runner_slice, plain))
+    emit({"phase": "bench", "tool": "bench", "s": round(
+        time.perf_counter() - t0, 1), "first_job_equals_plain_on_card":
+        plain_equal, **row})
+    if not (row["results_bitwise_equal_across_arms"] and row[
+            "e2e_chrM_golden"] and set(row["arms"]) == set(bench.ARM_NAMES)
+            and plain_equal and all(a["dispatch_profile"]
+                                    for a in row["arms"].values())):
+        raise AssertionError(f"bench: {row} (plain slice equal: "
+                             f"{plain_equal})")
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    row = run_tool(kernel_bench, [])
+    launched = {k: _kernels.LAUNCHES[k] for k in PAIRHMM_INSTANCES}
+    emit({"phase": "bench", "tool": "kernel_bench", "s": round(
+        time.perf_counter() - t0, 1), "launches": launched, **row})
+    if not (row["results_bitwise_equal_across_instances"]
+            and all(launched.values())
+            and [r["instance"] for r in row["instances"]]
+            == list(PAIRHMM_INSTANCES)):
+        raise AssertionError(f"kernel_bench: {row}, launches {launched}")
+
+    t0 = time.perf_counter()
+    row = run_tool(sustained_sweep, ["--rounds", "1"])
+    emit({"phase": "bench", "tool": "sustained_sweep", "s": round(
+        time.perf_counter() - t0, 1), **row})
+    chunked = {a["name"] for a in sustained_sweep.ARMS if a.get("chunks")}
+    if not (row["results_bitwise_equal_across_arms"] and all(
+            row[a["name"]].get("chunks") == (
+                sustained_sweep.CHUNKS_NOTE if a["name"] in chunked else None)
+            for a in sustained_sweep.ARMS)):
+        raise AssertionError(f"sustained_sweep: {row}")
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    row = run_tool(genotyper_bench, ["--rounds", "2"])
+    emit({"phase": "bench", "tool": "genotyper_bench", "s": round(
+        time.perf_counter() - t0, 1),
+        "launches": _kernels.LAUNCHES["genotype_f64"], **row})
+    if not (row["bitwise_equal"] and row["equal_to_host"]
+            and _kernels.LAUNCHES["genotype_f64"]):
+        raise AssertionError(f"genotyper_bench: {row}")
+
+    t0 = time.perf_counter()
+    row = run_tool(scaling_bench, [])
+    emit({"phase": "bench", "tool": "scaling_bench", "s": round(
+        time.perf_counter() - t0, 1), **row})
+    cards = row["visible_cards"]
+    for section in ("runner_weak_scaling", "sharded_step_weak_scaling"):
+        secs = row[section]["seconds"]
+        for n in scaling_bench.COUNTS:
+            if isinstance(secs[str(n)], str) != (n > cards):
+                raise AssertionError(f"scaling_bench {section}: {secs}")
+    if not row["dcn_2proc"]["t_2proc_s"] > 0:
+        raise AssertionError(f"scaling_bench: {row['dcn_2proc']}")
+    emit({"phase": "bench_done", "s": round(time.perf_counter() - t_phase,
+                                             1)})
+
+
 # phase_long_reads: reads past the largest read bucket (224), as 2x250
 # kits and MiSeq 2x300 runs give them (make_fixture --read-length): the
 # contig name, its length, the read length, and the r_pad the default ppe
@@ -2012,11 +2100,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(ROOT, "gatk_hc_tpu_torch")):
-        print("chip_smoke: run from a checkout of the repository",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
     smi = phase_card()
     kernels = phase_kernels()
     fronts = phase_front()
@@ -2028,6 +2111,7 @@ def main() -> int:
         contig_launches, contig_tiles, contig_default = phase_contig(tmp)
         phase_multi(tmp)
         phase_tools(tmp, contig_default)
+        phase_bench()
         long_reads = phase_long_reads(tmp)
         phase_cold(tmp, contig_default)
     # the genotype kernel at the tiles its main-path runs gave it: the

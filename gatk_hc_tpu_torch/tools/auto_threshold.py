@@ -31,6 +31,8 @@ import sys
 import tempfile
 import time
 
+from ._timing import nvidia_smi
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 ENGINES = ("native", "cuda")
@@ -92,10 +94,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("auto_threshold: no CUDA device", file=sys.stderr)
         return 1
-    emit({"nvidia_smi": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()})
+    emit({"nvidia_smi": nvidia_smi()})
     lengths = [int(x) for x in args.lengths.split(",") if x]
     walls = {}
     with tempfile.TemporaryDirectory(prefix="auto_threshold_") as tmp:

@@ -18,6 +18,13 @@ wall, and the device-memory peak; a gather stage exists on the striped
 path, and on the ppe paths only of trees whose ppe kernel does not read
 the unique rows itself), then one summary line per (tree, mode); the
 card's name and power limit (nvidia-smi) lead.  Needs a CUDA card.
+
+The counterpart of tools/dispatch_ab.py, which replays the 2 Mb fixture's
+PairHMM jobs through forced planes, forced packed and adaptive dispatch in
+ONE process.  This tool runs each mode as its own CLI process instead, so
+each wall holds the whole run (parse, assembly, genotyping) of its mode;
+tools/sustained_sweep.py and tools/bench.py A/B the encodings in one
+process on the bench workload.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import statistics
 import subprocess
 import sys
 import tempfile
+
+from ._timing import nvidia_smi
 
 # mode -> CLI flags; "default" is the CLI with no dispatch flag
 MODES = {
@@ -111,10 +120,7 @@ def main(argv=None) -> int:
             sink.write(line + "\n")
             sink.flush()
 
-    emit({"nvidia_smi": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()})
+    emit({"nvidia_smi": nvidia_smi()})
     with tempfile.TemporaryDirectory(prefix="dispatch_modes_") as tmp:
         first = trees[0][1]
         fix = os.path.join(tmp, "chr20sim")

@@ -33,6 +33,8 @@ import statistics
 import subprocess
 import sys
 
+from ._timing import nvidia_smi
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PATHS = ("planes", "packed", "nib")
@@ -136,10 +138,7 @@ def main(argv=None) -> int:
             sink.write(line + "\n")
             sink.flush()
 
-    emit({"nvidia_smi": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()})
+    emit({"nvidia_smi": nvidia_smi()})
     rows = {}
     for rnd, (label, tree) in enumerate(trees + trees[::-1]):
         proc = subprocess.run(

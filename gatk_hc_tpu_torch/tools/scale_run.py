@@ -24,6 +24,7 @@ import sys
 import tempfile
 import time
 
+from ._timing import nvidia_smi
 from .check_truth import check
 
 # seconds each process (fixture, each engine's run) may take
@@ -62,11 +63,7 @@ def main(argv=None) -> int:
 
     smi = None
     if args.device == "cuda":
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
+        smi = nvidia_smi()
     with tempfile.TemporaryDirectory(prefix="scale_run_") as scratch:
         work = args.dir or scratch
         os.makedirs(work, exist_ok=True)

@@ -390,14 +390,15 @@ def test_scale_run_on_cpu(tmp_path):
 
 
 def test_tools_import_without_jax():
-    """The port's tools import and run with jax and the JAX package
-    blocked."""
+    """The port's tools import and run with jax, the JAX package and the
+    reference's bench.py and tools/ blocked."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'gatk_hc_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'gatk_hc_tpu', 'bench', 'tools'):\n"
         "    sys.modules[name] = None\n"
-        "from gatk_hc_tpu_torch.tools import (check_truth, fuzz_differential,"
-        " host_profile, make_fixture, scale_run)\n"
+        "from gatk_hc_tpu_torch.tools import (_timing, bench, check_truth,"
+        " fuzz_differential, genotyper_bench, host_profile, kernel_bench,"
+        " make_fixture, scale_run, scaling_bench, sustained_sweep)\n"
         f"check_truth.main([{os.path.join(FIXTURES, 'chrM.golden.vcf')!r},"
         f" {os.path.join(FIXTURES, 'chrM.truth.txt')!r}])\n"
     )
