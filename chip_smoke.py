@@ -10,7 +10,11 @@ at one shape with reads longer than 256 rows, then
 holds the ppe kernel's unique-rows entry (one launch that reads a group's
 shipped unique rows itself) against its plain version for each shipping
 encoding (planes, packed, nib) at every bucket shape and at that long
-shape, fused over three groups and on a chunk of one, holds both
+shape, fused over three groups and on a chunk of one, holds the striped
+kernel's unique-rows entry (one launch per chunk that reads the raw
+shipped rows itself) against its plain version, the pair-major striped
+entry on the glue's inputs and the ppe kernel at every bucket shape and
+at two shapes past one stripe, holds both
 instances of the genotype kernel (f64, f32) against their plain version
 and the f64 one against the host genotyper on seeded tiles of the
 genotyper's bucket grid (and, after the runs below, on every tile the
@@ -106,6 +110,10 @@ GENOTYPE_TILES = ((1024, 128, 16), (256, 512, 32), (64, 2048, 128),
                   (2, 64, 16))
 STRIPED_SOURCE = "gatk_hc_tpu_torch/csrc/pairhmm_striped.cu"
 STRIPED_REPLACES = "gatk_hc_tpu/ops/pairhmm_pallas.py:59"
+# the jnp glue the striped kernel's unique-rows entry replaces (not a
+# Pallas kernel): _unpack_u8 + prepare_tables_striped +
+# dispatch_pairs_striped
+STRIPED_FRONT_REPLACES = "gatk_hc_tpu/ops/pairhmm_pallas.py:904"
 STRIPES = (8, 16, 32)
 # the kernel line reports the shape most main-path groups run at
 # (151 bp reads -> r_pad 160, 415 bp windows -> c_pad 448)
@@ -118,11 +126,14 @@ LONG_SHAPE = (160, 768)
 # two of 144 (K 18); striped16 runs one of 288 (K 18) (off the main path:
 # B cut to a quarter)
 CARRY_SHAPE = (288, 448)
+# 300 bp reads on the striped path: r_pad rounds to the stripe height, 320
+# at H 32 (the ppe path's 304 is no multiple of 32): K 5 in two stripes
+STRIPED_LONG_SHAPE = (320, 448)
 LAUNCH_KEYS = ("rows_per_lane", "stripes", "warps_per_block", "blocks_per_sm")
 # the kernels line's names, in its order: one per launch counter
 KERNEL_NAMES = tuple(
     [f"ppe{nr}" for nr in PPE_REPLACES] + [f"striped{h}" for h in STRIPES]
-    + [f"ppe_front_{path}" for path in FRONTS]
+    + [f"ppe_front_{path}" for path in FRONTS] + ["striped_front_packed"]
     + ["genotype_f64", "genotype_f32"])
 
 
@@ -155,14 +166,17 @@ def phase_card():
 def instance_name(mangled: str) -> str:
     """A kernel instance's short name from its mangled symbol:
     ppe_forward_kernel<5, false> -> "ppe_k5", <8, true> -> "ppe_k8_carry",
-    striped_forward_kernel<16, 10, false> -> "striped16_k10", <8, 16, true>
-    -> "striped8_k16_carry"."""
+    striped_forward_kernel<16, 10, false, false> -> "striped16_k10", <8,
+    16, true, false> -> "striped8_k16_carry", <32, 5, true, true> (the
+    unique-rows entry's instance) -> "striped32_k5_carry_packed"."""
     import re
 
-    m = re.search(r"striped_forward_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    m = re.search(r"striped_forward_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E",
+                  mangled)
     if m:
         return (f"striped{m.group(1)}_k{m.group(2)}"
-                + ("_carry" if m.group(3) == "1" else ""))
+                + ("_carry" if m.group(3) == "1" else "")
+                + ("_packed" if m.group(4) == "1" else ""))
     m = re.search(r"ppe_forward_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"ppe_k{m.group(1)}" + ("_carry" if m.group(2) == "1" else "")
@@ -176,16 +190,18 @@ def expected_instances(name: str):
     """Every instance a kernel library must hold: ppe K 1-8 with and
     without the carry (both entries, every source, share them); striped
     per H, K 1..KMAX(H), and K > KMAX(H) / 2 with the carry (the
-    rows-per-lane rule carries only there)."""
+    rows-per-lane rule carries only there), once per entry (the
+    unique-rows entry's named "_packed")."""
     if name == "pairhmm_ppe":
         return {f"ppe_k{k}{c}" for k in range(1, 9) for c in ("", "_carry")}
     if name == "genotyper":
         return {"genotype_f64", "genotype_f32"}
     from gatk_hc_tpu_torch.ops.pairhmm_striped import MAX_ROWS_PER_LANE
 
-    return {f"striped{h}_k{k}{c}" for h, kmax in MAX_ROWS_PER_LANE.items()
+    return {f"striped{h}_k{k}{c}{p}" for h, kmax in MAX_ROWS_PER_LANE.items()
             for k in range(1, kmax + 1)
-            for c in ("", "_carry") if not c or 2 * k > kmax}
+            for c in ("", "_carry") if not c or 2 * k > kmax
+            for p in ("", "_packed")}
 
 
 def compiler_report(_kernels, name):
@@ -332,10 +348,13 @@ def phase_kernels():
     striped H instance against the ppe kernel (bit for bit, all pairs), at
     every (r_pad, c_pad) of the default buckets and at LONG_SHAPE, B = the
     runner's group size, and at CARRY_SHAPE, B a quarter of it.  The
-    default H is also held against the striped plain version and the
-    oracle at every shape; every H against its plain version at
-    REPORT_SHAPE.  Each ppe and striped row carries its launch shape (rows
-    per lane, stripes, warps per block, blocks per SM)."""
+    default H is also held against the oracle at every shape, and against
+    its plain version at LONG_SHAPE; every H against its plain version at
+    REPORT_SHAPE (phase_striped_front holds the default H against the plain
+    version at every shape here, through the unique-rows entry, which it
+    holds against this entry bit for bit).  Each ppe and striped row
+    carries its launch shape (rows per lane, stripes, warps per block,
+    blocks per SM)."""
     import numpy as np
     import torch
 
@@ -417,8 +436,8 @@ def phase_kernels():
             row.update(pt.ppe_launch_shape(r_pad, c_pad, nr))
             timed(row, lambda: pt.ppe_forward(*args, trans, nr))
 
-        # striped: every H against the ppe kernel (NR 4, the default); the
-        # default H (every shape) and every H (REPORT_SHAPE) against the
+        # striped: every H against the ppe kernel (NR 4, the default);
+        # every H (REPORT_SHAPE) and the default H (LONG_SHAPE) against the
         # striped plain version, which hands rows between stripes
         sargs = striped_inputs(read, qual, rlen, hap, clen, "cuda")
         for h in STRIPES:
@@ -427,7 +446,8 @@ def phase_kernels():
                         oracle=h == default_h)
             row["bit_equal_ppe"] = row.pop("bit_equal_plain")
             row.update(ps.launch_shape(r_pad, c_pad, h))
-            if h == default_h or (r_pad, c_pad) == REPORT_SHAPE:
+            if (r_pad, c_pad) == REPORT_SHAPE or (
+                    h == default_h and (r_pad, c_pad) == LONG_SHAPE):
                 splain, splain_ms = timed_once(
                     lambda: ps.striped_forward_plain(*sargs, trans, h))
                 own = check(f"striped{h}", got, splain, splain_ms,
@@ -454,6 +474,53 @@ def main_group(rng, r_pad, c_pad):
     n_reads, n_haps = jobs * nr, jobs * nh
     read, qual, rlen, _h, _c = make_pairs(rng, n_reads, r_pad, c_pad)
     _r, _q, _l, hap, clen = make_pairs(rng, n_haps, r_pad, c_pad)
+    spans = [(j, j * nr * nh, nr, nh) for j in range(jobs)]
+    bases = [(j * nr, j * nh) for j in range(jobs)]
+    init_y = (INITIAL_CONSTANT_F32 / clen.astype(np.float32)).astype(np.float32)
+    return _Unique((n_reads, n_haps, r_pad, c_pad), read.ravel(),
+                   qual.ravel(), hap.ravel(), rlen, clen, init_y, spans,
+                   bases, jobs * nr * nh)
+
+
+def region_group(rng, r_pad, c_pad):
+    """One main-path-sized group whose pairs are related as a region's
+    are: 256 jobs of 64 reads x 4 haps (65,536 pairs), each job's haps one
+    window with ~0.5% SNPs each, its reads drawn from the window with ~1%
+    substitutions and a few N bases (one in eight unrelated, which
+    underflow), qualities as make_pairs gives them -> the runner's
+    _Unique rows.  (main_group pairs reads with unrelated haps, so most of
+    its pairs underflow.)"""
+    import numpy as np
+
+    from gatk_hc_tpu_torch.ops.runner import _Unique
+    from gatk_hc_tpu_torch.utils.quality import INITIAL_CONSTANT_F32
+
+    jobs, nr, nh = 256, 64, 4
+    n_reads, n_haps = jobs * nr, jobs * nh
+    acgtn = np.frombuffer(b"ACGTN", np.uint8)
+    window = acgtn[rng.integers(0, 4, (jobs, c_pad))]
+    width = rng.integers(max(r_pad, c_pad - 64), c_pad + 1, jobs)
+    hap = np.repeat(window, nh, axis=0)
+    snp = rng.random(hap.shape) < 0.005
+    hap[snp] = acgtn[rng.integers(0, 4, int(snp.sum()))]
+    clen = np.repeat(width, nh).astype(np.int32)
+    rlen = rng.integers(max(1, r_pad - 63), r_pad + 1, n_reads).astype(np.int32)
+    start = rng.integers(0, np.repeat(width, nr) - rlen + 1)
+    cols = np.minimum(start[:, None] + np.arange(r_pad)[None, :], c_pad - 1)
+    read = np.take_along_axis(np.repeat(window, nr, axis=0), cols, axis=1)
+    sub = rng.random(read.shape) < 0.01
+    read[sub] = acgtn[rng.integers(0, 4, int(sub.sum()))]
+    read[rng.random(read.shape) < 0.002] = ord("N")
+    unrelated = rng.random(n_reads) < 0.125
+    read[unrelated] = acgtn[rng.integers(0, 5, (int(unrelated.sum()), r_pad))]
+    qual = rng.integers(28, 41, read.shape)
+    low = rng.random(read.shape) < 0.03
+    qual[low] = rng.integers(5, 21, int(low.sum()))
+    qual = (qual + 33).astype(np.uint8)
+    col = np.arange(r_pad)[None, :]
+    read[col >= rlen[:, None]] = 0
+    qual[col >= rlen[:, None]] = 0
+    hap[np.arange(c_pad)[None, :] >= clen[:, None]] = 0
     spans = [(j, j * nr * nh, nr, nh) for j in range(jobs)]
     bases = [(j * nr, j * nh) for j in range(jobs)]
     init_y = (INITIAL_CONSTANT_F32 / clen.astype(np.float32)).astype(np.float32)
@@ -591,6 +658,129 @@ def phase_front():
             row["pct_of_bound"] = round(100 * row["bound_ms"] / row["ms"], 1)
             emit(row)
             results[(name, r_pad, c_pad, kind)] = row
+    return results
+
+
+def phase_striped_front():
+    """The striped kernel's unique-rows entry (one launch per chunk that
+    reads the group's raw shipped rows itself) on a region-like group
+    (region_group) packed by the runner's own host code (raw packed, as
+    the striped path ships it), B = 65,536, one segment: at H 32 at every
+    (r_pad, c_pad) of the default buckets, at LONG_SHAPE (where the
+    reference routes to striped), at CARRY_SHAPE and at STRIPED_LONG_SHAPE
+    (two stripes and a carry), and a chunk (pairs 12,345 .. 52,344) at REPORT_SHAPE; at H 8
+    and 16 at REPORT_SHAPE.  Each row holds the entry bit for bit against
+    its plain version (the plain glue, then striped_forward_plain, on the
+    card), against the pair-major entry on the glue's inputs (the parent's
+    path: prepare_tables_striped + gather_pairs_striped + striped<H>) and
+    against the ppe kernel's entry (NR 4) on the same segment, and gives
+    the entry's ms per launch, % of the operations bound, the plain ms,
+    the parent's glue + kernel ms (in turns with the entry), the glue and
+    the pair-major kernel alone, and the device-memory peak of the entry
+    and of glue + kernel."""
+    import numpy as np
+    import torch
+
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.ops import pairhmm_front as pf
+    from gatk_hc_tpu_torch.ops import pairhmm_striped as ps
+    from gatk_hc_tpu_torch.ops.runner import (
+        TorchPairHMMRunner, join_payloads, segments_of,
+    )
+    from gatk_hc_tpu_torch.utils.quality import BASE_TABLE, PH2PR_F32
+
+    runner = TorchPairHMMRunner(DEFAULT_CONFIG, device="cuda")
+    trans, tab = runner.trans, runner._ppe_tab
+    # the parent's device tables (its _Slot.striped_tabs)
+    tables = tuple(torch.from_numpy(t).to(runner.device)
+                   for t in ps.striped_tables(BASE_TABLE, PH2PR_F32))
+    default_h = DEFAULT_CONFIG.stripe_height
+    rng = np.random.default_rng(20261018)
+    shapes = [(r, c) for r in DEFAULT_CONFIG.read_pad_buckets
+              for c in DEFAULT_CONFIG.hap_pad_buckets]
+    cases = [(shape, default_h, "group")
+             for shape in shapes + [LONG_SHAPE, CARRY_SHAPE,
+                                    STRIPED_LONG_SHAPE]]
+    cases += [(REPORT_SHAPE, default_h, "chunk")]
+    cases += [(REPORT_SHAPE, h, "group") for h in STRIPES if h != default_h]
+    results = {}
+
+    def peak_mb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    t_phase = time.perf_counter()
+    for (r_pad, c_pad), h, kind in cases:
+        u = region_group(rng, r_pad, c_pad)
+        payload = runner._pack_bytes(u, time.perf_counter())
+        buf = join_payloads([payload], runner._pinned)
+        segs = segments_of([payload], buf.ship(runner.device))
+        if kind == "chunk":
+            segs = [dataclasses.replace(segs[0], start=12345, n=40000)]
+        seg = segs[0]
+        torch.cuda.synchronize()
+        entry = lambda: ps.striped_forward_unique(  # noqa: E731
+            segs, tab, trans, h)
+        got, entry_mb = peak_mb(entry)
+        want, plain_ms = timed_once(
+            lambda: ps.striped_forward_unique_plain(segs, tab, trans, h))
+
+        # the parent's per-chunk glue (prepare_tables_striped +
+        # gather_pairs_striped): pair-major inputs
+        glue = lambda: ps.segment_inputs_striped(seg, tables)  # noqa: E731
+        parent = lambda: ps.striped_forward(*glue(), trans, h)  # noqa: E731
+        major, glue_mb = peak_mb(parent)
+        args = glue()
+        pair_major = lambda: ps.striped_forward(*args, trans, h)  # noqa: E731
+        ppe4 = pf.ppe_forward_unique("packed", segs, tab, trans, 4)
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int32)  # noqa: E731
+        same = torch.equal(bits(got), bits(want))
+        same_major = torch.equal(bits(got), bits(major))
+        same_ppe = torch.equal(bits(got), bits(ppe4))
+        rlen, clen = segment_pairs(u, seg.start, seg.count)
+        bound_ms, bound_by = ppe_bound(rlen, clen, c_pad)
+        row = {
+            "phase": "kernel", "name": "striped_front_packed",
+            "stripe": h, "case": kind, "B": int(got.numel()),
+            "r_pad": r_pad, "c_pad": c_pad,
+            "nr_pad": u.dims[0], "nh_pad": u.dims[1],
+            "bit_equal_plain": same, "bit_equal_pair_major": same_major,
+            "bit_equal_ppe4": same_ppe,
+            "max_abs_err": float((got - want).abs().max()),
+            "underflowed_frac": round(float((got == 0).float().mean()), 4),
+            "plain_ms": round(plain_ms, 3),
+            "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
+            "library_ms": None,
+            "peak_mb_entry": round(entry_mb, 1),
+            "peak_mb_glue_and_kernel": round(glue_mb, 1),
+            **ps.launch_shape(r_pad, c_pad, h, packed=True),
+        }
+        if not (same and same_major and same_ppe):
+            emit(row)
+            raise AssertionError(
+                f"striped_front_packed H {h} {kind} at r_pad={r_pad} "
+                f"c_pad={c_pad}: entry differs from plain ({same}), the "
+                f"pair-major entry ({same_major}) or ppe4 ({same_ppe})")
+        # the entry and the parent's glue + pair-major kernel in turns
+        turns = {}
+        for key, fn in (("ms", entry), ("parent_ms", parent),
+                        ("parent_ms", parent), ("ms", entry)):
+            turns.setdefault(key, []).append(time_ms(fn, 10))
+        row.update({k: round(statistics.median(v), 4)
+                    for k, v in turns.items()})
+        row["pair_major_ms"] = round(time_ms(pair_major, 10), 4)
+        row["glue_ms"] = round(time_ms(glue, 10), 4)
+        row["pct_of_bound"] = round(100 * row["bound_ms"] / row["ms"], 1)
+        emit(row)
+        results[(h, r_pad, c_pad, kind)] = row
+        del args, major, buf
+    emit({"phase": "striped_front_summary", "cases": len(results),
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
     return results
 
 
@@ -911,11 +1101,31 @@ def one_launch_per_unit(name, stats):
             f"units {units}: {launches}")
 
 
+def one_striped_launch_per_chunk(name, stats):
+    """Every striped launch of a run is a launch of the striped kernel's
+    unique-rows entry, one per chunk, with no gather stage: the striped
+    launches equal the entry's and the launches the dispatch_profile
+    counts, and no device stage between H2D and kernel is reported.
+    Raises otherwise."""
+    launches = stats["launches"]
+    striped = sum(n for k, n in launches.items()
+                  if k.startswith("striped") and k[7:].isdigit())
+    front = launches.get("striped_front_packed", 0)
+    units = sum((stats.get("dispatch_profile") or {}).values())
+    stages = stats.get("device_stages_ms") or {}
+    if not striped == front == units or "gather" in stages or (
+            "gather" in stages.get("sum_ms", {})):
+        raise AssertionError(
+            f"{name}: striped launches {striped}, front launches {front}, "
+            f"chunks {units}, stages {sorted(stages)}: {launches}")
+
+
 def check_run(name, stats, must, may, labels, fused=False):
     """A run's launches and labels against its path: raises on a kernel
     that was not launched or should not have been, on a label of another
-    path, on a fused run without a fused label, and on a ppe run whose
-    launch units took more than one launch each."""
+    path, on a fused run without a fused label, on a ppe run whose launch
+    units took more than one launch each, and on a striped run that
+    launched the pair-major entry or timed a gather stage."""
     launched = {k for k, n in stats["launches"].items() if n}
     profile = set(stats.get("dispatch_profile") or {})
     ok = (must <= launched <= may and profile <= labels
@@ -924,7 +1134,9 @@ def check_run(name, stats, must, may, labels, fused=False):
         raise AssertionError(
             f"{name}: launches {stats['launches']}, dispatch_profile "
             f"{stats.get('dispatch_profile')}")
-    if not any(k.startswith("striped") for k in launched):
+    if any(k.startswith("striped") for k in launched):
+        one_striped_launch_per_chunk(name, stats)
+    else:
         one_launch_per_unit(name, stats)
 
 
@@ -966,9 +1178,10 @@ def phase_chrm(tmp):
             for k in must - {"ppe4"}:
                 launches[k] = stats["launches"][k]
             continue
-        # the default shipping of chrM's one group is planes
-        want = {name} if name.startswith("striped") else {
-            name, "ppe_front_planes"}
+        # the default shipping of chrM's one group is planes; the striped
+        # path's raw bytes go through the striped entry
+        want = {name, "striped_front_packed"} if name.startswith(
+            "striped") else {name, "ppe_front_planes"}
         check_run(f"chrM {name}", stats, want, want, {"planes", "striped"})
         launches[name] = stats["launches"][name]
     return launches
@@ -1060,12 +1273,15 @@ def phase_chrm_engines(tmp):
     return {"genotype_f32": launches["genotype_f32"]}, record
 
 
+# the striped path's runner launches: the unique-rows entry at H 32, counted
+# under both labels
+_STRIPED_ANY = {"striped32", "striped_front_packed"}
 CONTIG_RUNS = {
     "ppe4": ([], {"ppe4", "ppe_front_planes"},
              {"ppe4", "ppe_front_planes", "ppe_front_nib", "ppe_front_packed"},
              {"planes", "packednib", "packed"}),
     **PATH_RUNS,
-    "striped32": (["--pallas-algo", "striped"], {"striped32"}, {"striped32"},
+    "striped32": (["--pallas-algo", "striped"], _STRIPED_ANY, _STRIPED_ANY,
                   {"striped"}),
     "genotyper_cuda": (["--genotyper", "cuda"],
                        {"ppe4", "ppe_front_planes", "genotype_f64"},
@@ -1085,7 +1301,10 @@ def phase_contig(tmp):
     engine's.  -> (each kernel's launches in the first
     run of the path that drives it, the genotype tiles of the first
     --genotyper cuda run: recording_genotype_tiles, the default runs'
-    walls and stages)."""
+    walls and stages).  Then one more striped run, whose launch units are
+    recorded (recording_striped_units) and replayed (striped_units_row):
+    it is kept apart so that the clones do not enter the measured runs'
+    device peaks."""
     import torch
 
     from gatk_hc_tpu_torch.tools import make_fixture
@@ -1114,10 +1333,19 @@ def phase_contig(tmp):
         with open(vcf, "rb") as handle:
             stats["vcf"] = handle.read()
         runs[name].append(stats)
+    striped_vcf = os.path.join(tmp, "chr20sim.striped_units.vcf")
+    with recording_striped_units() as units:
+        striped_units = run_cli(base + ["-O", striped_vcf]
+                                + CONTIG_RUNS["striped32"][0])
     native_vcf = os.path.join(tmp, "chr20sim.native.vcf")
     native = run_cli(base + ["-O", native_vcf, "--pairhmm", "native"])
     with open(native_vcf, "rb") as handle:
         want = handle.read()
+    with open(striped_vcf, "rb") as handle:
+        if handle.read() != want:
+            raise AssertionError("2 Mb contig, recorded striped run: VCF "
+                                 "differs from native")
+    striped_units_row(units, striped_units, runs["striped32"])
     first = runs["ppe4"][0]
     row = {
         "phase": "contig_2mb", "fixture_gen_s": round(gen_s, 1),
@@ -1155,7 +1383,7 @@ def phase_contig(tmp):
                       fused=name == "fused")
     return {
         "ppe4": runs["ppe4"][0]["launches"]["ppe4"],
-        "striped32": runs["striped32"][0]["launches"]["striped32"],
+        **{k: runs["striped32"][0]["launches"][k] for k in _STRIPED_ANY},
         "genotype_f64": runs["genotyper_cuda"][0]["launches"]["genotype_f64"],
         **{f"ppe_front_{path}": runs[path][0]["launches"][f"ppe_front_{path}"]
            for path in FRONTS},
@@ -1435,7 +1663,7 @@ _PPE_ANY = {"ppe4", "ppe_front_planes", "ppe_front_packed", "ppe_front_nib"}
 # ones it may
 FUZZ_LAUNCHES = {
     "cuda": ({"ppe4"}, _PPE_ANY),
-    "cuda_striped": ({"striped32"}, {"striped32"}),
+    "cuda_striped": (_STRIPED_ANY, _STRIPED_ANY),
     "cuda_stream_mt": ({"ppe4"}, _PPE_ANY),
     "diag": (set(), set()),
     "shardmap": ({"ppe4"}, {"ppe4"}),
@@ -1717,7 +1945,7 @@ LONG_FUZZ_ARMS = ("native", "cuda", "cuda_striped", "cuda_stream_mt", "diag",
 LONG_RUNS = {
     "cuda": ([], {"ppe4", "ppe_front_planes"}, _PPE_ANY,
              {"planes", "packednib", "packed"}),
-    "striped": (["--pallas-algo", "striped"], {"striped32"}, {"striped32"},
+    "striped": (["--pallas-algo", "striped"], _STRIPED_ANY, _STRIPED_ANY,
                 {"striped"}),
     "genotyper_cuda": (["--genotyper", "cuda"],
                        {"ppe4", "ppe_front_planes", "genotype_f64"},
@@ -1725,6 +1953,89 @@ LONG_RUNS = {
                        {"planes", "packednib", "packed"}),
     "native": (["--pairhmm", "native"], set(), set(), set()),
 }
+
+
+@contextlib.contextmanager
+def recording_striped_units():
+    """Inside, every launch of the striped kernel's unique-rows entry is
+    kept: its segment with the group's device views cloned on the
+    launching stream (after the launch), the table, the transitions, the
+    stripe height and the host ms of the wrapper's call (its checks, the
+    segment row and the launch; it does not synchronise).  The launch and
+    its count stay the wrapper's own.  Yields the list of (segments,
+    table, trans, stripe, host_ms)."""
+    from gatk_hc_tpu_torch.ops import pairhmm_striped as ps
+
+    launch = ps.striped_forward_unique
+    units = []
+
+    def recording(segments, table, trans, stripe=32):
+        t0 = time.perf_counter()
+        out = launch(segments, table, trans, stripe)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        units.append(([
+            dataclasses.replace(seg, views=tuple(v.clone() for v in seg.views))
+            for seg in segments], table, trans, stripe, host_ms))
+        return out
+
+    ps.striped_forward_unique = recording
+    try:
+        yield units
+    finally:
+        ps.striped_forward_unique = launch
+
+
+def striped_units_row(units, stats, measured):
+    """The recorded striped run's launch units replayed: each unit's entry
+    held bit for bit against the pair-major entry on the plain glue's
+    inputs (the parent's path), and the sums over the units of the entry's
+    device ms (launches queued back to back: the host's enqueue hidden),
+    of the same with the card idle before each launch (time_ms: the
+    wrapper's host time counted, as the runner's kernel stage counts it
+    when the card waits for the host), of the pair-major kernel's and the
+    glue's device ms, and of the wrapper's in-run host ms, beside the
+    kernel stage sums of this run and of the measured striped runs
+    (``measured``: their --stats).  Raises when a unit differs."""
+    import torch
+
+    from gatk_hc_tpu_torch.ops import pairhmm_striped as ps
+
+    sums = dict.fromkeys(("entry_queued_ms", "entry_idle_ms",
+                          "pair_major_queued_ms", "glue_queued_ms"), 0.0)
+    same = True
+    for segs, tab, trans, h, _host_ms in units:
+        tables = ps.element_tables(tab)
+        unit = lambda: ps.launch_striped_unique(segs, tab, trans, h)  # noqa: E731
+        args = ps.segment_inputs_striped(segs[0], tables)
+        major = lambda: ps.striped_forward(*args, trans, h)  # noqa: E731
+        got, want = unit(), major()
+        torch.cuda.synchronize()
+        same &= torch.equal(got.view(torch.int32), want.view(torch.int32))
+        sums["entry_queued_ms"] += time_ms_queued(unit, 10)
+        sums["entry_idle_ms"] += time_ms(unit, 10)
+        sums["pair_major_queued_ms"] += time_ms_queued(major, 10)
+        sums["glue_queued_ms"] += time_ms_queued(
+            lambda: ps.segment_inputs_striped(segs[0], tables), 10)
+        del args, got, want
+    stage = lambda st: (st.get("device_stages_ms") or {}).get(  # noqa: E731
+        "sum_ms", {}).get("kernel")
+    host = [u[4] for u in units]
+    row = {
+        "phase": "contig_striped_units", "units": len(units),
+        "pairs": sum(seg.count for u in units for seg in u[0]),
+        "bit_equal_pair_major": same,
+        **{k: round(v, 3) for k, v in sums.items()},
+        "host_call_ms_sum": round(sum(host), 3),
+        "host_call_ms_median": round(statistics.median(host), 4)
+        if host else None,
+        "run_kernel_stage_ms": stage(stats),
+        "measured_kernel_stage_ms": [stage(st) for st in measured],
+    }
+    emit(row)
+    if not same:
+        raise AssertionError("2 Mb striped units: the entry differs from the "
+                             "pair-major entry on the glue's inputs")
+    return row
 
 
 @contextlib.contextmanager
@@ -2097,12 +2408,15 @@ def long_read_unit(row):
 def main() -> int:
     import torch
 
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_card()
     kernels = phase_kernels()
     fronts = phase_front()
+    striped_fronts = phase_striped_front()
     genotypes = phase_genotyper()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         chrm_launches = phase_chrm(tmp)
@@ -2167,6 +2481,26 @@ def main() -> int:
                                 for u in long_reads["units"]
                                 if u["source"] == path],
         })
+    # the striped kernel's unique-rows entry: the 2 Mb --pallas-algo
+    # striped run's launches, the default H's seeded group at REPORT_SHAPE
+    rows = list(striped_fronts.values())
+    rep = striped_fronts[(DEFAULT_CONFIG.stripe_height,) + REPORT_SHAPE
+                         + ("group",)]
+    lines.append({
+        "name": "striped_front_packed", "route": "cuda",
+        "source": STRIPED_SOURCE, "replaces": STRIPED_FRONT_REPLACES,
+        "launches": contig_launches["striped_front_packed"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+        "library_ms": None,
+        "shape": {"B": rep["B"], "r_pad": rep["r_pad"], "c_pad": rep["c_pad"],
+                  "stripe": rep["stripe"]},
+        "parent_ms": rep["parent_ms"],
+        "peak_mb": {"entry": rep["peak_mb_entry"],
+                    "glue_and_kernel": rep["peak_mb_glue_and_kernel"]},
+        "long_read_groups": long_reads["striped_groups"],
+    })
     for name, main in main_tiles.items():
         rows = [v for (k, *_rest), v in genotypes.items() if k == name]
         rows += main

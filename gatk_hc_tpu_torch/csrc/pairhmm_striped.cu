@@ -5,6 +5,10 @@
 // _pallas_forward(algo="striped").  One template over the stripe height H
 // (8, 16 or 32: the lanes of a warp that own one pair), K (the read rows
 // each lane holds) and CARRY (whether a pair's rows span several stripes).
+// It also replaces the XLA glue in front of _pallas_forward on the
+// reference runner's striped path (none of it is Pallas): _unpack_u8
+// (:904), prepare_tables_striped (:1327) and dispatch_pairs_striped
+// (:1341), through its unique-rows entry (below).
 //
 // What it computes, per (read, hap) pair b: the same function as the ppe
 // kernel (csrc/pairhmm_ppe.cu), the raw f32 forward probability (scaled by
@@ -18,6 +22,34 @@
 // G3 N4 become one-hot masks A 1, C 2, T 4, G 8 and N 15 where they are
 // loaded, so the match is one AND: for codes 0..4 (all that the byte table
 // gives) it equals (r == h) | (r == 4) | (h == 4).
+//
+// Where a pair's inputs come from (the template argument PACKED: each
+// <H, K, CARRY> instance is compiled once per source, so that neither
+// source pays for the other's registers or branches; the pair-major
+// instances are the kernel as it was before the unique-rows entry):
+//   pair-major  pairhmm_striped_forward: read codes, 1-q and q/3 (B, r_pad),
+//               hap codes (B, c_pad), rlen / clen / init_y (B,), as
+//               _pallas_forward takes them;
+//   PACKED      pairhmm_striped_forward_unique: one chunk of a group (one
+//               segment: the striped path never fuses groups) as the
+//               runner ships it raw (ops/pairhmm_front.py): u8 [reads |
+//               quals | haps], i32 [read lens | hap lens | init_y bits], i32
+//               (2, total) pair indices.  Each segment of H lanes finds its
+//               (read, hap) pair in the pair indices (a pair outside nr_pad
+//               x nh_pad traps: the launch fails and the process's CUDA
+//               context is lost, but nothing is read out of bounds), and
+//               loads its rows' base and quality bytes from the unique
+//               read row (int64 offsets) through the 768-entry
+//               ppe_element_table
+//               ([mask | 1-q | q/3] at 0 / 256 / 512; the quality entries
+//               repeat with period 128, so a byte indexes them as qual &
+//               127 does the reference's tables); the hap is staged from
+//               the unique hap row's bytes through the mask segment.  The
+//               table is read through the read-only data cache (3 KB, hot
+//               in L1).  init_y is f32 bits in i32, reinterpreted.  Only
+//               bit patterns move: no float is computed before the step
+//               loop, and no per-pair copy of the inputs exists in device
+//               memory.
 //
 // Design.  A segment of H consecutive lanes of a warp owns one pair, so a
 // warp holds 32/H pairs.  The read is cut into stripes of H K rows; lane i
@@ -61,7 +93,11 @@
 // unfused for exactness, and the mask AND and select per row; per step, 3
 // shuffles, one LDS, the lane-0 selects, the capture and the loop.  So it
 // is bound by instruction issue, not by device memory: each pair's inputs
-// are read once and only its result is written.  Lanes wait up to H-1
+// are read once and only its result is written.  Both entries' bound is
+// the operations bound (tools/_timing.py::ppe_bound), not bytes: from the
+// unique rows a 65,536-pair group of 16,384 reads reads ~6 MB, which stays
+// in L2, where the glue this entry replaced wrote ~244 MB of pair-major
+// planes at (160, 448) for the kernel to read back.  Lanes wait up to H-1
 // steps at the start of a stripe, rows past rlen are computed up to the
 // next multiple of H K, and at H < 32 a segment waits for the longest
 // clen of its warp and pays the capture predicates.  On an NVIDIA H100
@@ -94,6 +130,7 @@ constexpr int DEFAULT_SMEM = 48 * 1024;
 constexpr int KMAX_32 = 8;
 constexpr int KMAX_16 = 20;
 constexpr int KMAX_8 = 28;
+constexpr int SEG_FIELDS = 14;  // int64 values per segment row (the C entry)
 
 constexpr int kmax(int h) {
   return h == 32 ? KMAX_32 : h == 16 ? KMAX_16 : KMAX_8;
@@ -103,17 +140,34 @@ struct Trans {
   float p_mm, p_gapm, p_mx, p_xx, p_my, p_yy;
 };
 
+// The chunk of a unique-rows launch: launch pair b is the group's pair src
+// + b of its (2, stride) pair indices, read from its shipped arrays
+// (device pointers).
+struct Seg {
+  long long src;
+  const int32_t* lens;   // [read lens | hap lens | init_y bits]
+  const uint8_t* rows;   // [reads | quals], (nr_pad, r_pad) bytes each
+  const uint8_t* haps;   // (nh_pad, c_pad) bytes
+  const int32_t* pairs;  // (2, stride) read / hap indices
+  long long stride;
+  int nr_pad, nh_pad;
+};
+
+// Everything a launch reads besides its output, passed by value in the
+// kernel's parameters.
 struct Args {
-  const int32_t* rs;    // (B, r_pad) read base codes
-  const float* omq;     // (B, r_pad) 1 - q
-  const float* q3;      // (B, r_pad) q / 3
-  const int32_t* hap;   // (B, c_pad) hap base codes
-  const int32_t* rlen;  // (B,)
-  const int32_t* clen;  // (B,)
-  const float* init_y;  // (B,)
-  float* out;           // (B,)
+  const int32_t* rs;     // pair-major: (B, r_pad) read base codes
+  const float* omq;      // pair-major: (B, r_pad) 1 - q
+  const float* q3;       // pair-major: (B, r_pad) q / 3
+  const int32_t* hap;    // pair-major: (B, c_pad) hap base codes
+  const int32_t* rlen;   // pair-major: (B,)
+  const int32_t* clen;   // pair-major: (B,)
+  const float* init_y;   // pair-major: (B,)
+  const int32_t* table;  // PACKED: ppe_element_table (768)
+  float* out;            // (B,)
   int B, r_pad, c_pad;
   Trans tr;
+  Seg seg;               // PACKED
 };
 
 // A base code (0..4) as a one-hot mask; N matches every base.
@@ -236,7 +290,7 @@ __device__ __forceinline__ void sweep_at(
                          steps, cl, i, QC, -1, iy, tr, acc_m, acc_x);
 }
 
-template <int H, int K, bool CARRY>
+template <int H, int K, bool CARRY, bool PACKED>
 __global__ void __launch_bounds__(LANES * MAX_WARPS)
 striped_forward_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -249,10 +303,27 @@ striped_forward_kernel(Args a) {
   if (H == LANES && !valid) return;  // the whole warp: one pair per warp
   int rl = 0, cl = 0;
   float iy = 0.0f;
+  // PACKED: the pair's unique read row (its base bytes; its quality bytes
+  // lie nr_pad rows further) and unique hap row in the shipped bytes
+  const uint8_t* read_u8 = nullptr;
+  const uint8_t* hap_u8 = nullptr;
   if (valid) {
-    rl = a.rlen[b];
-    cl = max(0, min(a.clen[b], a.c_pad));
-    iy = a.init_y[b];
+    if constexpr (PACKED) {
+      const long long e = a.seg.src + b;
+      const int pr = a.seg.pairs[e];
+      const int ph = a.seg.pairs[a.seg.stride + e];
+      if (pr < 0 || pr >= a.seg.nr_pad || ph < 0 || ph >= a.seg.nh_pad)
+        __trap();
+      rl = a.seg.lens[pr];
+      cl = max(0, min(a.seg.lens[a.seg.nr_pad + ph], a.c_pad));
+      iy = __int_as_float(a.seg.lens[a.seg.nr_pad + a.seg.nh_pad + ph]);
+      read_u8 = a.seg.rows + static_cast<long long>(pr) * a.r_pad;
+      hap_u8 = a.seg.haps + static_cast<long long>(ph) * a.c_pad;
+    } else {
+      rl = a.rlen[b];
+      cl = max(0, min(a.clen[b], a.c_pad));
+      iy = a.init_y[b];
+    }
   }
   // a read length outside 1..r_pad captures no row: the TPU kernel's row
   // mask never fires and it returns 0
@@ -277,7 +348,10 @@ striped_forward_kernel(Args a) {
   const int32_t* hap_b = a.hap + b * a.c_pad;
   for (int j = i; j < a.c_pad + 2 * HAP_PAD; j += H) {
     const int col = j - HAP_PAD;
-    hap_s[j] = col >= 0 && col < cl ? code_mask(hap_b[col]) : 0;
+    if constexpr (PACKED)
+      hap_s[j] = col >= 0 && col < cl ? __ldg(a.table + hap_u8[col]) : 0;
+    else
+      hap_s[j] = col >= 0 && col < cl ? code_mask(hap_b[col]) : 0;
   }
   __syncwarp();
   const unsigned char* hs = hap_s + HAP_PAD - 1 - i;  // hs[t]: column t - i
@@ -290,6 +364,9 @@ striped_forward_kernel(Args a) {
   const int32_t* rs_b = a.rs + b * a.r_pad;
   const float* omq_b = a.omq + b * a.r_pad;
   const float* q3_b = a.q3 + b * a.r_pad;
+  const uint8_t* qual_u8 =
+      PACKED ? read_u8 + static_cast<long long>(a.seg.nr_pad) * a.r_pad
+             : nullptr;
   float acc_m = 0.0f, acc_x = 0.0f;
   for (int s = 0; s < n_warp; ++s) {
     const bool live = s < n;
@@ -301,9 +378,16 @@ striped_forward_kernel(Args a) {
       rs[q] = 0;
       omq[q] = q3[q] = 0.0f;
       if (live && r < rl) {
-        rs[q] = code_mask(rs_b[r]);
-        omq[q] = omq_b[r];
-        q3[q] = q3_b[r];
+        if constexpr (PACKED) {
+          const int qb = qual_u8[r];
+          rs[q] = __ldg(a.table + read_u8[r]);
+          omq[q] = __int_as_float(__ldg(a.table + 256 + qb));
+          q3[q] = __int_as_float(__ldg(a.table + 512 + qb));
+        } else {
+          rs[q] = code_mask(rs_b[r]);
+          omq[q] = omq_b[r];
+          q3[q] = q3_b[r];
+        }
       }
     }
     const bool more = s + 1 < n;
@@ -327,7 +411,7 @@ striped_forward_kernel(Args a) {
 // Blocks of up to MAX_WARPS warps, fewer when their shared memory would
 // exceed the default 48 KB; a single warp that needs more raises the
 // kernel's limit, up to the card's opt-in maximum.
-template <int H, int K, bool CARRY>
+template <int H, int K, bool CARRY, bool PACKED>
 cudaError_t configure(int c_pad, int* warps_out, size_t* smem_out) {
   const size_t per_warp =
       (size_t)(LANES / H) *
@@ -344,7 +428,7 @@ cudaError_t configure(int c_pad, int* warps_out, size_t* smem_out) {
           &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
     if (smem > (size_t)limit) return cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(striped_forward_kernel<H, K, CARRY>,
+    err = cudaFuncSetAttribute(striped_forward_kernel<H, K, CARRY, PACKED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
@@ -354,29 +438,31 @@ cudaError_t configure(int c_pad, int* warps_out, size_t* smem_out) {
   return cudaSuccess;
 }
 
-template <int H, int K, bool CARRY>
+template <int H, int K, bool CARRY, bool PACKED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   int warps = 0;
   size_t smem = 0;
-  const cudaError_t err = configure<H, K, CARRY>(a.c_pad, &warps, &smem);
+  const cudaError_t err =
+      configure<H, K, CARRY, PACKED>(a.c_pad, &warps, &smem);
   if (err != cudaSuccess) return err;
   const int pairs_per_block = warps * (LANES / H);
   const int blocks = (a.B + pairs_per_block - 1) / pairs_per_block;
-  striped_forward_kernel<H, K, CARRY>
+  striped_forward_kernel<H, K, CARRY, PACKED>
       <<<blocks, LANES * warps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // The launch shape at c_pad: warps per block, dynamic shared memory per
 // block (bytes) and the blocks an SM holds at once (occupancy API).
-template <int H, int K, bool CARRY>
+template <int H, int K, bool CARRY, bool PACKED>
 cudaError_t shape(int c_pad, int* out) {
   int warps = 0, blocks = 0;
   size_t smem = 0;
-  cudaError_t err = configure<H, K, CARRY>(c_pad, &warps, &smem);
+  cudaError_t err = configure<H, K, CARRY, PACKED>(c_pad, &warps, &smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, striped_forward_kernel<H, K, CARRY>, LANES * warps, smem);
+        &blocks, striped_forward_kernel<H, K, CARRY, PACKED>, LANES * warps,
+        smem);
   out[0] = warps;
   out[1] = (int)smem;
   out[2] = blocks;
@@ -416,6 +502,29 @@ cudaError_t with_height(int stripe, int k, int r_pad, F&& f) {
   }
 }
 
+// The instance for (stripe, k, r_pad) and the source, launched on a's
+// pairs.
+template <bool PACKED>
+int launch_any(const Args& a, int stripe, int k, cudaStream_t s) {
+  return static_cast<int>(
+      with_height(stripe, k, a.r_pad, [&](auto h, auto kc, auto cc) {
+        return launch<decltype(h)::value, decltype(kc)::value,
+                      decltype(cc)::value, PACKED>(a, s);
+      }));
+}
+
+// The launch shape of that instance at c_pad into out[3].
+template <bool PACKED>
+int shape_any(int r_pad, int c_pad, int stripe, int k, void* out) {
+  auto* o = static_cast<int*>(out);
+  if (r_pad <= 0 || c_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      with_height(stripe, k, r_pad, [&](auto h, auto kc, auto cc) {
+        return shape<decltype(h)::value, decltype(kc)::value,
+                     decltype(cc)::value, PACKED>(c_pad, o);
+      }));
+}
+
 }  // namespace
 
 // Raw forward probabilities of B pairs into out (B,) f32, stripe height
@@ -435,22 +544,66 @@ extern "C" int pairhmm_striped_forward(const void* rs, const void* omq,
   if (B <= 0) return 0;
   if (r_pad <= 0 || c_pad <= 0 || stripe <= 0 || r_pad % stripe != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const int32_t*>(rs),
-               static_cast<const float*>(omq),
-               static_cast<const float*>(q3),
-               static_cast<const int32_t*>(hap),
-               static_cast<const int32_t*>(rlen),
-               static_cast<const int32_t*>(clen),
-               static_cast<const float*>(init_y),
-               static_cast<float*>(out),
-               B, r_pad, c_pad,
-               Trans{p_mm, p_gapm, p_mx, p_xx, p_my, p_yy}};
-  auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      with_height(stripe, k, r_pad, [&](auto h, auto kc, auto cc) {
-        return launch<decltype(h)::value, decltype(kc)::value,
-                      decltype(cc)::value>(a, s);
-      }));
+  Args a{};
+  a.rs = static_cast<const int32_t*>(rs);
+  a.omq = static_cast<const float*>(omq);
+  a.q3 = static_cast<const float*>(q3);
+  a.hap = static_cast<const int32_t*>(hap);
+  a.rlen = static_cast<const int32_t*>(rlen);
+  a.clen = static_cast<const int32_t*>(clen);
+  a.init_y = static_cast<const float*>(init_y);
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.r_pad = r_pad;
+  a.c_pad = c_pad;
+  a.tr = Trans{p_mm, p_gapm, p_mx, p_xx, p_my, p_yy};
+  return launch_any<false>(a, stripe, k, static_cast<cudaStream_t>(stream));
+}
+
+// Raw forward probabilities of one chunk read from its group's shipped raw
+// packed rows (the PACKED source; it replaces _unpack_u8 +
+// prepare_tables_striped + dispatch_pairs_striped): seg a host array of
+// one segment row of SEG_FIELDS int64 values in the ppe entry's layout,
+// [first, n, src, lens, rows, haps, pairs, stride, mini, spans, starts,
+// nr_pad, nh_pad, n_spans] (pointers as device addresses; first 0; mini,
+// spans, starts and n_spans unused; ops/pairhmm_front.py::segment_rows);
+// table the 768-entry ppe_element_table; out (n,) f32; stripe and k as
+// pairhmm_striped_forward takes them.  Returns a CUDA error code
+// (cudaErrorInvalidValue for a bad segment row, stripe, k or shape,
+// cudaErrorInvalidConfiguration when one warp's shared memory does not
+// fit), 0 on success.
+extern "C" int pairhmm_striped_forward_unique(
+    const void* seg, const void* table, void* out, int r_pad, int c_pad,
+    int stripe, int k, float p_mm, float p_gapm, float p_mx, float p_xx,
+    float p_my, float p_yy, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (seg == nullptr || r_pad <= 0 || c_pad <= 0 || stripe <= 0 ||
+      r_pad % stripe != 0 || table == nullptr)
+    return bad;
+  const auto* row = static_cast<const long long*>(seg);
+  const long long n = row[1];
+  Args a{};
+  a.table = static_cast<const int32_t*>(table);
+  a.out = static_cast<float*>(out);
+  a.r_pad = r_pad;
+  a.c_pad = c_pad;
+  a.tr = Trans{p_mm, p_gapm, p_mx, p_xx, p_my, p_yy};
+  Seg& g = a.seg;
+  g.src = row[2];
+  g.lens = reinterpret_cast<const int32_t*>(row[3]);
+  g.rows = reinterpret_cast<const uint8_t*>(row[4]);
+  g.haps = reinterpret_cast<const uint8_t*>(row[5]);
+  g.pairs = reinterpret_cast<const int32_t*>(row[6]);
+  g.stride = row[7];
+  g.nr_pad = static_cast<int>(row[11]);
+  g.nh_pad = static_cast<int>(row[12]);
+  if (row[0] != 0 || n < 0 || n > INT32_MAX || g.src < 0 ||
+      g.src + n > g.stride || g.nr_pad < 1 || g.nh_pad < 1 || !g.lens ||
+      !g.rows || !g.haps || !g.pairs)
+    return bad;
+  if (n == 0) return 0;
+  a.B = static_cast<int>(n);
+  return launch_any<true>(a, stripe, k, static_cast<cudaStream_t>(stream));
 }
 
 // The launch shape pairhmm_striped_forward uses at (r_pad, c_pad, stripe,
@@ -459,11 +612,13 @@ extern "C" int pairhmm_striped_forward(const void* rs, const void* omq,
 // success.
 extern "C" int pairhmm_striped_launch_shape(int r_pad, int c_pad, int stripe,
                                             int k, void* out) {
-  auto* o = static_cast<int*>(out);
-  if (r_pad <= 0 || c_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      with_height(stripe, k, r_pad, [&](auto h, auto kc, auto cc) {
-        return shape<decltype(h)::value, decltype(kc)::value,
-                     decltype(cc)::value>(c_pad, o);
-      }));
+  return shape_any<false>(r_pad, c_pad, stripe, k, out);
+}
+
+// The same for pairhmm_striped_forward_unique's instance (its own
+// registers, so its resident blocks may differ).
+extern "C" int pairhmm_striped_unique_launch_shape(int r_pad, int c_pad,
+                                                   int stripe, int k,
+                                                   void* out) {
+  return shape_any<true>(r_pad, c_pad, stripe, k, out);
 }

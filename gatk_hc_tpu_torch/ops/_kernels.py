@@ -62,12 +62,16 @@ NVCC_FLAGS = (
 # CLI's --stats read these).  A launch of the ppe kernel's unique-rows
 # entry (ops/pairhmm_front.py) also counts under its source,
 # "ppe_front_<planes|packed|nib>", so "ppe<NR>" less those is the
-# pair-minor entry's launches.  The genotyper kernel (ops/genotyper_cuda.py)
+# pair-minor entry's launches; a launch of the striped kernel's
+# unique-rows entry (ops/pairhmm_striped.py::striped_forward_unique) also
+# counts under "striped_front_packed", so "striped<H>" less that is the
+# pair-major entry's.  The genotyper kernel (ops/genotyper_cuda.py)
 # counts here too, per instance ("genotype_f64", "genotype_f32").
 LAUNCHES: Dict[str, int] = {
     **{f"ppe{nr}": 0 for nr in (1, 2, 4, 8)},
     **{f"striped{h}": 0 for h in (8, 16, 32)},
     **{f"ppe_front_{path}": 0 for path in ("planes", "packed", "nib")},
+    "striped_front_packed": 0,
     "genotype_f64": 0,
     "genotype_f32": 0,
 }
@@ -266,9 +270,12 @@ def _bind_pairhmm_ppe(lib: ctypes.CDLL) -> None:
 
 
 def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
-    """The striped kernel: pair-major inputs, ``stripe`` lanes per pair and
-    ``k`` read rows per lane."""
+    """The striped kernel: ``stripe`` lanes per pair and ``k`` read rows
+    per lane.  Two entries, each with its own instances and launch-shape
+    query: pair-major inputs, and one chunk's shipped raw packed rows
+    described by a host segment row (the ppe entry's layout)."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    trans = [f, f, f, f, f, f]  # p_mm, p_gapm, p_mx, p_xx, p_my, p_yy
     fn = lib.pairhmm_striped_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -276,12 +283,22 @@ def _bind_pairhmm_striped(lib: ctypes.CDLL) -> None:
         vp, vp, vp,  # rlen, clen, init_y
         vp,  # out
         i, i, i, i, i,  # B, r_pad, c_pad, stripe, k
-        f, f, f, f, f, f,  # p_mm, p_gapm, p_mx, p_xx, p_my, p_yy
+        *trans,
         vp,  # cudaStream_t
     ]
-    shape = lib.pairhmm_striped_launch_shape
-    shape.restype = ctypes.c_int
-    shape.argtypes = [i, i, i, i, vp]  # r_pad, c_pad, stripe, k, int[3] out
+    fn = lib.pairhmm_striped_forward_unique
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        vp,  # one segment row (host int64)
+        vp, vp,  # 768 table, out
+        i, i, i, i,  # r_pad, c_pad, stripe, k
+        *trans,
+        vp,  # cudaStream_t
+    ]
+    for shape in (lib.pairhmm_striped_launch_shape,
+                  lib.pairhmm_striped_unique_launch_shape):
+        shape.restype = ctypes.c_int
+        shape.argtypes = [i, i, i, i, vp]  # r_pad, c_pad, stripe, k, int[3] out
 
 
 def _bind_genotyper(lib: ctypes.CDLL) -> None:

@@ -17,21 +17,30 @@ for bit.  Its inputs are pair-major, as _pallas_forward takes them:
 * ``rlen``, ``clen`` (B,) i32 and ``init_y`` (B,) f32 = INITIAL / haplen.
 
 ``striped_forward`` launches the kernel on CUDA tensors and runs the plain
-version on CPU tensors; nothing else picks between them.  The glue keeps
-the reference package's signatures: ``unpack_u8`` / ``prepare_tables_striped``
-/ ``dispatch_pairs_striped`` / ``pairhmm_unique`` are the counterparts of
-_unpack_u8 / prepare_tables_striped / dispatch_pairs_striped /
-pairhmm_pallas_unique.
+version on CPU tensors; nothing else picks between them.
+
+The runner's entry is ``striped_forward_unique``: the kernel's unique-rows
+entry (``pairhmm_striped_forward_unique``), one launch per chunk that
+reads the group's shipped raw packed rows itself (ops/pairhmm_front.py's
+``Segment``s and segment table, the packed layout), through the ppe
+kernel's 768-entry ``ppe_element_table``, so that no pair-major copy of
+the inputs is written to device memory.  It replaces the glue in front of
+the reference's striped kernel, which stays here as torch ops for the
+entry's plain version, with the reference package's signatures:
+``unpack_u8`` / ``prepare_tables_striped`` / ``dispatch_pairs_striped`` /
+``pairhmm_unique`` are the counterparts of _unpack_u8 /
+prepare_tables_striped / dispatch_pairs_striped / pairhmm_pallas_unique.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .pairhmm_front import Segment, check, segment_rows
 from .pairhmm_torch import LAUNCHES, _flush
 
 # stripe heights the CUDA kernel is built for
@@ -68,6 +77,24 @@ def striped_tables(base_table: np.ndarray, ph2pr_f32: np.ndarray):
         (np.float32(1.0) - ph2pr).astype(np.float32),
         (ph2pr / np.float32(3.0)).astype(np.float32),
     )
+
+
+def element_tables(table: torch.Tensor):
+    """``striped_tables`` read back from the 768-entry ppe_element_table
+    (masks, 1 - q bits, q / 3 bits by byte) on its device: byte -> base
+    code (256,) i32 (mask 1 / 2 / 4 / 8 / 15 -> code 0 / 1 / 2 / 3 / 4),
+    Phred -> 1 - q and q / 3 (128,) f32 (the table's quality entries
+    repeat with period 128).  Raises on a mask that is no base's."""
+    dev = table.device
+    lut = torch.full((16,), -1, dtype=torch.int32, device=dev)
+    lut[torch.tensor([1, 2, 4, 8, 15], device=dev)] = torch.arange(
+        5, dtype=torch.int32, device=dev)
+    masks = table[:256].to(torch.int64)
+    codes = lut[masks.clamp(0, 15)]
+    if bool(((codes < 0) | (masks != masks.clamp(0, 15))).any()):
+        raise ValueError("the table's mask entries are not base masks")
+    return (codes, table[256:384].view(torch.float32),
+            table[512:640].view(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -255,20 +282,23 @@ def launch_striped(read_codes, read_omq, read_q3, hap_codes, rlen, clen,
     return out
 
 
-def launch_shape(r_pad: int, c_pad: int, stripe: int) -> Dict[str, int]:
-    """How ``striped_forward`` launches at (r_pad, c_pad, stripe) on the
-    current card: rows per lane, stripes, warps per block, dynamic shared
-    memory per block (bytes) and the blocks an SM holds at once.  Needs a
-    card."""
+def launch_shape(r_pad: int, c_pad: int, stripe: int,
+                 packed: bool = False) -> Dict[str, int]:
+    """How ``striped_forward`` (or, with ``packed``,
+    ``striped_forward_unique``: its own instance) launches at (r_pad,
+    c_pad, stripe) on the current card: rows per lane, stripes, warps per
+    block, dynamic shared memory per block (bytes) and the blocks an SM
+    holds at once.  Needs a card."""
     from . import _kernels
 
     lib = _kernels.load("pairhmm_striped")
     k = striped_rows_per_lane(stripe, r_pad)
     out = (ctypes.c_int * 3)()
-    err = lib.pairhmm_striped_launch_shape(r_pad, c_pad, stripe, k,
-                                           ctypes.addressof(out))
+    query = (lib.pairhmm_striped_unique_launch_shape if packed
+             else lib.pairhmm_striped_launch_shape)
+    err = query(r_pad, c_pad, stripe, k, ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"pairhmm_striped_launch_shape: CUDA error {err}")
+        raise RuntimeError(f"{query.__name__}: CUDA error {err}")
     return {"rows_per_lane": k, "stripes": striped_stripes(stripe, k, r_pad),
             "warps_per_block": out[0], "smem_per_block": out[1],
             "blocks_per_sm": out[2]}
@@ -359,3 +389,114 @@ def pairhmm_unique(read_u8, qual_u8, read_lens, hap_u8, hap_lens, hap_init_y,
         *tables, torch.stack([pair_read, pair_hap]), trans, r_pad, c_pad,
         stripe,
     )
+
+
+# ---------------------------------------------------------------------------
+# The unique-rows entry: one launch per chunk from the shipped raw rows.
+
+
+def _segment_pairs(seg: Segment) -> torch.Tensor:
+    """A segment's (2, count) read / hap indices, a view of its shipped
+    pair indices."""
+    return seg.views[2][: 2 * seg.total].view(2, seg.total)[
+        :, seg.start : seg.start + seg.count]
+
+
+def check_unique(segments: Sequence[Segment], table, stripe: int) -> None:
+    """Types, shapes and devices of one launch of the unique-rows entry
+    (``pairhmm_front.check`` on the packed layout), one segment (the
+    striped path launches one chunk of one group: it never fuses), the
+    stripe height and r_pad % stripe; on CPU tensors also each pair's
+    indices inside nr_pad x nh_pad (on the card the kernel checks them
+    with no synchronisation here: a pair outside traps, see
+    ``striped_forward_unique``).  Raises on what the entry does not
+    take."""
+    check("packed", segments, table)
+    if len(segments) != 1:
+        raise ValueError(f"the striped entry launches one segment, got "
+                         f"{len(segments)}")
+    r_pad = segments[0].dims[2]
+    if table.device.type == "cuda" and stripe not in KERNEL_STRIPES:
+        raise ValueError(f"the striped kernel takes stripe in "
+                         f"{KERNEL_STRIPES}, got {stripe}")
+    if stripe < 1 or r_pad % stripe:
+        raise ValueError(f"stripe {stripe} must divide r_pad {r_pad}")
+    if table.device.type != "cpu":
+        return
+    seg = segments[0]
+    pairs = _segment_pairs(seg)
+    if pairs.numel() and (
+            int(pairs.min()) < 0 or int(pairs[0].max()) >= seg.dims[0]
+            or int(pairs[1].max()) >= seg.dims[1]):
+        raise ValueError(f"pair indices outside {seg.dims[0]} reads x "
+                         f"{seg.dims[1]} haps")
+
+
+def segment_inputs_striped(seg: Segment, tables) -> Tuple[torch.Tensor, ...]:
+    """One segment's pair-major striped inputs through the plain glue:
+    ``prepare_tables_striped`` on its shipped bytes, then
+    ``gather_pairs_striped`` of its pairs.  ``tables`` is
+    ``element_tables`` of the entry's table."""
+    u8, lens, _pairs = seg.views
+    unique = prepare_tables_striped(u8, lens, *tables, *seg.dims)
+    return gather_pairs_striped(*unique, _segment_pairs(seg))
+
+
+def striped_forward_unique_plain(segments: Sequence[Segment], table, trans,
+                                 stripe: int) -> torch.Tensor:
+    """Plain version of the unique-rows entry: the segment's pair-major
+    inputs through the plain glue, then ``striped_forward_plain``; the
+    same (count,) f32 bit for bit."""
+    (seg,) = segments
+    args = segment_inputs_striped(seg, element_tables(table))
+    return striped_forward_plain(*args, trans, stripe)
+
+
+def launch_striped_unique(segments: Sequence[Segment], table, trans,
+                          stripe: int) -> torch.Tensor:
+    """One launch of the unique-rows entry on checked CUDA tensors,
+    uncounted: what ``striped_forward_unique`` counts, and the runner's
+    warm-up launches do not.  -> (count,) f32."""
+    from . import _kernels
+
+    lib = _kernels.load("pairhmm_striped")
+    r_pad, c_pad = segments[0].dims[2:]
+    rows = segment_rows("packed", segments)
+    dev = table.device
+    out = torch.empty(int(rows[0, 1]), dtype=torch.float32, device=dev)
+    err = lib.pairhmm_striped_forward_unique(
+        rows.ctypes.data, table.data_ptr(), out.data_ptr(),
+        r_pad, c_pad, stripe, striped_rows_per_lane(stripe, r_pad),
+        *(float(t) for t in trans), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"pairhmm_striped_forward_unique launch failed: CUDA error {err}")
+    return out
+
+
+def striped_forward_unique(segments: Sequence[Segment], table, trans,
+                           stripe: int = 32) -> torch.Tensor:
+    """Raw forward probabilities (count,) f32 of one chunk read from its
+    group's shipped raw packed rows: ``segments`` holds one segment (the
+    runner's chunk of a group; the striped path never fuses groups).
+
+    ``table`` is the 768-entry ppe_element_table.  CUDA tensors launch the
+    striped kernel's unique-rows entry once (``stripe`` 8, 16 or 32,
+    dividing r_pad; ``striped_rows_per_lane`` rows per lane) and count the
+    launch under ``striped<stripe>`` and ``striped_front_packed``; CPU
+    tensors run ``striped_forward_unique_plain``.  Does not synchronise
+    and allocates nothing but the result.  A failed build or launch
+    raises.  On the card the pair indices are checked by the kernel, not
+    here (that would synchronise): a pair outside nr_pad x nh_pad traps,
+    which reads nothing out of bounds but ends the process's CUDA context,
+    so every later CUDA call of the process fails too; on CPU tensors
+    ``check_unique`` raises ``ValueError`` instead."""
+    segments: List[Segment] = list(segments)
+    check_unique(segments, table, stripe)
+    if table.device.type == "cpu":
+        return striped_forward_unique_plain(segments, table, trans, stripe)
+    out = launch_striped_unique(segments, table, trans, stripe)
+    LAUNCHES[f"striped{stripe}"] += 1
+    LAUNCHES["striped_front_packed"] += 1
+    return out

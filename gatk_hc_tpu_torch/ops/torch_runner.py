@@ -20,7 +20,10 @@ separately would drown in per-launch overhead.  ``TorchPairHMMRunner``:
    the group's unique rows itself, in every encoding (lookups and, for
    nib, the pair expansion included: ops/pairhmm_front.py) — or, with
    fusion (cfg.fuse_groups, cfg.fuse_auto), one copy and one launch for
-   k same-path groups — then one D2H copy of the submit's outputs;
+   k same-path groups; on the striped path one launch of the striped
+   kernel's unique-rows entry per chunk, unfused, which reads the raw
+   rows itself too (ops/pairhmm_striped.py::striped_forward_unique) —
+   then one D2H copy of the submit's outputs;
 5. ``drain`` resolves the handle (re-raising any error of the worker),
    waits for the D2H copy and finalizes log10 likelihoods per job
    (sentinel or exact host float64 rescue for underflowed pairs,
@@ -73,9 +76,9 @@ from .runner import (
 
 # "submit" is the caller's time inside submit(), per submit; "d2h" is per
 # submit and slot; the others are per launch unit (a group, or k fused groups),
-# "pack" per group; "gather" is the striped path's table and pair gathers
-# (the ppe paths have no stage between H2D and kernel)
-STAGES = ("submit", "pack", "h2d", "gather", "kernel", "d2h", "finalize")
+# "pack" per group (no path has a stage between H2D and kernel: each
+# kernel reads the shipped rows itself)
+STAGES = ("submit", "pack", "h2d", "kernel", "d2h", "finalize")
 
 
 class _Stamp:
@@ -194,9 +197,6 @@ class _Entry:
     keep: object  # the host buffer, alive until the batch is drained
     slot: int = 0  # the runner's slot it ran on
     start: int = 0  # offset in the submit's output
-    # the striped path's gathers before each launch: start, end
-    gathers: List[Tuple[_Stamp, _Stamp]] = dataclasses.field(
-        default_factory=list)
 
 
 @dataclasses.dataclass
@@ -210,13 +210,12 @@ class _Batch:
 @dataclasses.dataclass
 class _Slot:
     """One place launch units go: a device, its own stream (None on the
-    CPU) and the device's tables."""
+    CPU) and the device's table."""
 
     index: int
     device: torch.device
     stream: Optional["torch.cuda.Stream"]
-    ppe_tab: torch.Tensor  # the 768-entry table the ppe kernel reads
-    striped_tabs: Optional[Tuple[torch.Tensor, ...]]  # striped path only
+    ppe_tab: torch.Tensor  # the 768-entry table both kernels read bytes by
 
     def active(self):
         """The slot's device and stream made current (nothing on the
@@ -336,28 +335,19 @@ class TorchPairHMMRunner:
         self.trans = tuple(np.float32(t) for t in host["trans"])
         self.striped = cfg.pallas_algo == "striped"
         # the 768-entry combined table the ppe kernel reads packed and nib
-        # bytes through (ppe_element_table layout: the three plane tables
-        # end to end); the striped path's byte -> code, Phred -> 1 - q and
-        # Phred -> q / 3 tables; both once per device
+        # bytes through, and the striped kernel raw bytes
+        # (ppe_element_table layout: the three plane tables end to end),
+        # once per device
         ppe_tab = np.concatenate(
             [self._mask_tab, self._omq_bits_tab, self._q3_bits_tab]
         ).astype(np.int32)
-        striped_host = None
-        if self.striped:
-            from .pairhmm_striped import striped_tables
-
-            striped_host = striped_tables(host["base_table"], host["ph2pr"])
-        per_device: Dict[torch.device, tuple] = {}
+        per_device: Dict[torch.device, torch.Tensor] = {}
         self._slots: List[_Slot] = []
         for index, dev in enumerate(self.devices):
             if dev not in per_device:
-                per_device[dev] = (
-                    torch.from_numpy(ppe_tab).to(dev),
-                    None if striped_host is None else tuple(
-                        torch.from_numpy(t).to(dev) for t in striped_host),
-                )
+                per_device[dev] = torch.from_numpy(ppe_tab).to(dev)
             stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-            self._slots.append(_Slot(index, dev, stream, *per_device[dev]))
+            self._slots.append(_Slot(index, dev, stream, per_device[dev]))
         self._ppe_tab = self._slots[0].ppe_tab
         self._next_slot = 0
         # the slot of every launch unit, in launch order (all submits)
@@ -506,9 +496,6 @@ class TorchPairHMMRunner:
                 self.stage_ms["finalize"].append((time.perf_counter() - t0) * 1e3)
                 self.stage_ms["pack"].extend(e.pack_ms)
                 self.stage_ms["h2d"].append(e.h2d[0].ms_until(e.h2d[1]))
-                if e.gathers:
-                    self.stage_ms["gather"].append(
-                        sum(a.ms_until(b) for a, b in e.gathers))
                 self.stage_ms["kernel"].append(
                     sum(a.ms_until(b) for a, b in e.chunks))
 
@@ -666,28 +653,22 @@ class TorchPairHMMRunner:
     def _warm(self, slot: _Slot, r_pad: int, c_pad: int) -> int:
         """One uncounted launch on ``slot`` of each kernel instance the
         shape uses, on one pair -> the number of launches."""
-        dev = slot.device
-        ones = torch.ones(1, dtype=torch.int32, device=dev)
-        init_y = torch.ones(1, dtype=torch.float32, device=dev)
-        if self.striped:
-            from .pairhmm_striped import launch_striped
-
-            codes = torch.zeros((1, r_pad), dtype=torch.int32, device=dev)
-            probs = torch.zeros((1, r_pad), dtype=torch.float32, device=dev)
-            hap = torch.zeros((1, c_pad), dtype=torch.int32, device=dev)
-            launch_striped(codes, probs, probs, hap, ones, ones, init_y,
-                           self.trans, self.cfg.stripe_height)
-            return 1
         from .pairhmm_front import Segment, launch_ppe_unique
+        from .pairhmm_striped import launch_striped_unique
 
-        # one pair of one read and one hap, raw packed: every source runs
-        # the same kernel instance
+        # one pair of one read and one hap, raw packed: every source of the
+        # ppe kernel runs the same instance
+        dev = slot.device
         u8 = torch.zeros(2 * r_pad + c_pad, dtype=torch.uint8, device=dev)
         lens = torch.ones(3, dtype=torch.int32, device=dev)
         pairs = torch.zeros(2, dtype=torch.int32, device=dev)
-        launch_ppe_unique("packed", [Segment((u8, lens, pairs),
-                                             (1, 1, r_pad, c_pad), 1)],
-                          slot.ppe_tab, self.trans, self.cfg.ppe_rows)
+        segs = [Segment((u8, lens, pairs), (1, 1, r_pad, c_pad), 1)]
+        if self.striped:
+            launch_striped_unique(segs, slot.ppe_tab, self.trans,
+                                  self.cfg.stripe_height)
+        else:
+            launch_ppe_unique("packed", segs, slot.ppe_tab, self.trans,
+                              self.cfg.ppe_rows)
         return 1
 
     # ------------------------------------------------------------------
@@ -786,7 +767,7 @@ class TorchPairHMMRunner:
             t_pack = time.perf_counter()
         u = self._unique_rows(jobs, group, r_pad, c_pad)
         if path == "striped":
-            return self._launch_striped(self._pack_bytes(u, t_pack))
+            return self._launch_chunks(self._pack_bytes(u, t_pack))
         n_chunks = -(-u.total // self.pair_budget)
         if path == "packed":
             nib = (self._nib_encode(u.read_u8, u.qual_u8)
@@ -1020,15 +1001,19 @@ class TorchPairHMMRunner:
                       slot=slot.index)
 
     def _launch_chunks(self, p: _Payload) -> _Entry:
-        """A group of several chunks (one oversized job): one H2D copy,
-        then per chunk one ppe launch over the chunk's pairs, read from
-        the group's unique rows ("planes", or raw packed as
-        "packed-split")."""
+        """A group of several chunks (one oversized job), or any group on
+        the striped path (the reference runner's raw-byte branch, never
+        fused): one H2D copy, then per chunk one launch over the chunk's
+        pairs that reads the group's unique rows itself — the ppe entry
+        ("planes", or raw packed as "packed-split") or the striped
+        kernel's ("striped", raw packed)."""
         from .pairhmm_front import Segment, ppe_forward_unique
+        from .pairhmm_striped import striped_forward_unique
 
         slot = self._take_slot()
         stream = slot.stream
-        label = "planes" if p.path == "planes" else "packed-split"
+        label = ("striped" if self.striped else
+                 "planes" if p.path == "planes" else "packed-split")
         outs, chunks = [], []
         with slot.active():
             h0 = _Stamp(stream)
@@ -1036,11 +1021,14 @@ class TorchPairHMMRunner:
             h1 = _Stamp(stream)
             for off in range(0, p.total, self.pair_budget):
                 size = min(self.pair_budget, p.total - off)
+                seg = [Segment(views, p.dims, p.total, off, size)]
                 k0 = _Stamp(stream)
-                outs.append(ppe_forward_unique(
-                    _FRONT[p.path],
-                    [Segment(views, p.dims, p.total, off, size)],
-                    slot.ppe_tab, self.trans, self.cfg.ppe_rows))
+                outs.append(
+                    striped_forward_unique(seg, slot.ppe_tab, self.trans,
+                                           self.cfg.stripe_height)
+                    if self.striped else
+                    ppe_forward_unique(_FRONT[p.path], seg, slot.ppe_tab,
+                                       self.trans, self.cfg.ppe_rows))
                 chunks.append((k0, _Stamp(stream)))
                 self.dispatch_counts[label] = (
                     self.dispatch_counts.get(label, 0) + 1)
@@ -1061,43 +1049,6 @@ class TorchPairHMMRunner:
             for (path, _r, _c), ps in buckets.items()
             for i in range(0, len(ps), width)
         ]
-
-    def _launch_striped(self, p: _Payload) -> _Entry:
-        """The striped kernel's path (the reference runner's raw-byte
-        branch): the raw packed payload in one copy to the card, the base
-        and Phred tables applied there once per group, then a pair gather
-        and a striped launch per chunk."""
-        from .pairhmm_striped import (
-            gather_pairs_striped, prepare_tables_striped, striped_forward,
-        )
-
-        slot = self._take_slot()
-        stream = slot.stream
-        outs, chunks, gathers = [], [], []
-        with slot.active():
-            h0 = _Stamp(stream)
-            views = p.buf.ship(slot.device)
-            h1 = _Stamp(stream)
-            pairs = views[2].view(2, p.total)
-            tables = None
-            for off in range(0, p.total, self.pair_budget):
-                size = min(self.pair_budget, p.total - off)
-                s0 = _Stamp(stream)
-                if tables is None:  # once per group, timed with the gather
-                    tables = prepare_tables_striped(
-                        views[0], views[1], *slot.striped_tabs, *p.dims)
-                args = gather_pairs_striped(*tables, pairs[:, off : off + size])
-                s1 = _Stamp(stream)
-                outs.append(
-                    striped_forward(*args, self.trans, self.cfg.stripe_height)
-                )
-                gathers.append((s0, s1))
-                chunks.append((s1, _Stamp(stream)))
-                self.dispatch_counts["striped"] = (
-                    self.dispatch_counts.get("striped", 0) + 1
-                )
-        return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
-                      p.buf, slot=slot.index, gathers=gathers)
 
     def _build_planes(self, read_u8, qual_u8, hap_u8, read_lens, hap_lens,
                       hap_init_y, nr_pad, nh_pad, r_pad, c_pad, out=None):

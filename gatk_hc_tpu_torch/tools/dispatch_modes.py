@@ -13,10 +13,10 @@ forward in even rounds, backward in odd ones (parent, change, change,
 parent) — so that a drift of the card or the host falls on both.  Every
 VCF is compared with the first tree's native C++ engine's.  One JSON line
 per run (wall, launches, dispatch_profile, init_profile, the runner's
-stage sums and medians, device busy = (H2D + gather + kernel + D2H) /
-wall, and the device-memory peak; a gather stage exists on the striped
-path, and on the ppe paths only of trees whose ppe kernel does not read
-the unique rows itself), then one summary line per (tree, mode); the
+stage sums and medians, device busy = the sum of the device stages (H2D,
+kernel, D2H, and the gather of trees whose kernels do not read the
+unique rows themselves) / wall, and the device-memory peak), then one
+summary line per (tree, mode) with every stage its runs report; the
 card's name and power limit (nvidia-smi) lead.  Needs a CUDA card.
 
 The counterpart of tools/dispatch_ab.py, which replays the 2 Mb fixture's
@@ -48,7 +48,8 @@ MODES = {
     "fused": ["--dispatch-mode", "packed", "--no-fuse-auto"],
     "striped": ["--pallas-algo", "striped"],
 }
-DEVICE_STAGES = ("h2d", "gather", "kernel", "d2h")
+# the runner's host stages: every other stage a tree reports is the card's
+HOST_STAGES = ("submit", "pack", "finalize")
 
 
 def cli(tree, argv, timeout=1800):
@@ -79,7 +80,7 @@ def knows_dispatch_flags(tree) -> bool:
 def record(tree_label, mode, stats, vcf_bytes, want):
     stages = stats.get("device_stages_ms") or {}
     sums = stages.get("sum_ms", {})
-    busy_ms = sum(sums.get(s, 0.0) for s in DEVICE_STAGES)
+    busy_ms = sum(v for s, v in sums.items() if s not in HOST_STAGES)
     return {
         "tree": tree_label, "mode": mode, "wall_s": stats["wall_s"],
         "identical_to_native": vcf_bytes == want,
@@ -172,8 +173,7 @@ def main(argv=None) -> int:
             "identical_to_native": all(r["identical_to_native"] for r in rows),
             "device_busy_frac": [round(r["device_busy_frac"], 4) for r in rows],
             **{f"{s}_sum_ms": [x.get(s) for x in sums]
-               for s in ("submit", "pack", "h2d", "gather", "kernel", "d2h",
-                         "finalize")},
+               for s in dict.fromkeys(s for x in sums for s in x)},
             "pack_median_ms": [r["stage_median_ms"].get("pack") for r in rows],
             "cuda_max_memory_allocated_mb": [
                 r["cuda_max_memory_allocated_mb"] for r in rows],

@@ -2,7 +2,8 @@
 more checkouts, in turns.
 
     python -m gatk_hc_tpu_torch.tools.front_compare \\
-        [--tree parent=DIR] [--tree change=.] [--reps 10] [--out FILE]
+        [--tree parent=DIR] [--tree change=.] [--kernel ppe|striped] \\
+        [--reps 10] [--out FILE]
 
 Each tree runs in its own process (this file, run by path, with the tree
 first on the import path), trees forward then backward (parent, change,
@@ -17,8 +18,16 @@ ppe launch.  Per (tree, shape, encoding) one JSON line: median ms of the
 unit (CUDA events, warmed up), of the front and the ppe launch alone
 where they are separate, the device-memory peak of one unit above what
 was allocated before it, and a digest of the raw results; then one
-summary line per (shape, encoding) with every tree's times.  Results must
-be bit-equal across trees, else it exits 1.  The card's name and power
+summary line per (shape, encoding) with every tree's times.
+
+``--kernel striped`` times the striped kernel's pair-major entry
+(``pairhmm_striped.striped_forward``) instead, at H 8, 16 and 32, on
+chip_smoke.py::make_pairs's seeded pairs (B = the runner's group size) at
+REPORT_SHAPE and LONG_SHAPE, one line per (tree, shape, H) with its
+median ms as ``unit_ms`` and ``path`` ``pair_major_striped<H>``: what a
+change to the kernel's shared code costs the entry it did not target.
+
+Results must be bit-equal across trees, else it exits 1.  The card's name and power
 limit (nvidia-smi) lead.  Needs a CUDA card.
 """
 
@@ -33,7 +42,6 @@ import statistics
 import subprocess
 import sys
 
-from ._timing import nvidia_smi
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -48,6 +56,40 @@ def _chip_smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def striped_worker(tree: str, reps: int, seed: int) -> None:
+    """One tree's pair-major striped kernel, one JSON line per (shape,
+    H)."""
+    sys.path.insert(0, tree)
+    import numpy as np
+
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
+    from gatk_hc_tpu_torch.ops import _kernels
+    from gatk_hc_tpu_torch.ops import pairhmm_striped as ps
+    from gatk_hc_tpu_torch.ops import pairhmm_torch as pt
+    from gatk_hc_tpu_torch.ops.torch_runner import TorchPairHMMRunner
+
+    cs = _chip_smoke()
+    _kernels.build_all()
+    trans = pt.transition_constants(DEFAULT_CONFIG.gop_char,
+                                    DEFAULT_CONFIG.gcp_char)
+    B = TorchPairHMMRunner.GROUP_PAIRS
+    rng = np.random.default_rng(seed)
+    for r_pad, c_pad in (cs.REPORT_SHAPE, cs.LONG_SHAPE):
+        args = cs.striped_inputs(*cs.make_pairs(rng, B, r_pad, c_pad),
+                                 "cuda")
+        for h in ps.KERNEL_STRIPES:
+            def unit():
+                return ps.striped_forward(*args, trans, h)
+
+            out = unit()
+            row = {"tree": tree, "r_pad": r_pad, "c_pad": c_pad,
+                   "path": f"pair_major_striped{h}", "B": B,
+                   "digest": hashlib.sha1(
+                       out.cpu().numpy().tobytes()).hexdigest(),
+                   "unit_ms": cs.time_ms(unit, reps)}
+            print(json.dumps(row), flush=True)
 
 
 def worker(tree: str, reps: int, seed: int) -> None:
@@ -119,14 +161,20 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", action="append", default=[],
                         metavar="LABEL=DIR",
                         help="a checkout to measure (default: change=.)")
+    parser.add_argument("--kernel", default="ppe", choices=("ppe", "striped"))
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--seed", type=int, default=20261017)
     parser.add_argument("--out", default=None, help="also write the lines here")
     parser.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker:
-        worker(args.worker, args.reps, args.seed)
+        run = striped_worker if args.kernel == "striped" else worker
+        run(args.worker, args.reps, args.seed)
         return 0
+    # here, not at the top: a tree's worker runs this file by path, outside
+    # the package
+    from ._timing import nvidia_smi
+
     trees = [t.split("=", 1) for t in (args.tree or ["change=."])]
     trees = [(label, os.path.abspath(path)) for label, path in trees]
     sink = open(args.out, "w") if args.out else None
@@ -143,7 +191,8 @@ def main(argv=None) -> int:
     for rnd, (label, tree) in enumerate(trees + trees[::-1]):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             "--reps", str(args.reps), "--seed", str(args.seed)],
+             "--kernel", args.kernel, "--reps", str(args.reps),
+             "--seed", str(args.seed)],
             cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
             capture_output=True, text=True, timeout=1800)
         if proc.returncode != 0:

@@ -9,7 +9,9 @@ or ``--cache-dir``), loads each one, then launches on the card, once,
 every kernel instance that the CLI's flags can reach: the ppe kernel at
 --ppe-rows 1, 2, 4 and 8 through both its entries (pair-minor, and the
 unique-rows entry from each shipping encoding: planes, packed, nib), the
-striped kernel at --stripe-height 8, 16 and 32, and the genotype kernel's
+striped kernel at --stripe-height 8, 16 and 32 through both its entries
+(pair-major, and the unique-rows entry from raw packed), and the genotype
+kernel's
 f64 and f32 instances.  Each launch runs on a small seeded input at
 ``WARM_SHAPE`` and is held bit for bit against the kernel's plain PyTorch
 version on the same input.  A deployment runs it once per node and
@@ -48,6 +50,7 @@ WARM_SHAPE = (160, 448)
 PPE_ROWS = (1, 2, 4, 8)
 PPE_ENTRIES = ("pair_minor", "planes", "packed", "nib")
 STRIPES = (8, 16, 32)
+STRIPED_ENTRIES = ("pair_major", "packed")
 GENOTYPE_TILE = (32, 16, 8)  # (S, R, H)
 
 
@@ -66,7 +69,8 @@ class Instance:
             return f"ppe{self.arg}" + (
                 "" if self.entry == "pair_minor" else f"_front_{self.entry}")
         if self.kernel == "striped":
-            return f"striped{self.arg}"
+            return f"striped{self.arg}" + (
+                "_front_packed" if self.entry == "packed" else "")
         return f"genotype_f{self.arg}"
 
     @property
@@ -78,6 +82,8 @@ class Instance:
             nr = f"ppe{select_rows(self.arg, WARM_SHAPE[0])}"
             return (nr,) if self.entry == "pair_minor" else (
                 nr, f"ppe_front_{self.entry}")
+        if self.kernel == "striped" and self.entry == "packed":
+            return (f"striped{self.arg}", "striped_front_packed")
         return (self.name,)
 
     @property
@@ -96,7 +102,8 @@ class Instance:
 
             k = striped_rows_per_lane(self.arg, r_pad)
             carry = "_carry" if striped_stripes(self.arg, k, r_pad) > 1 else ""
-            return f"striped{self.arg}_k{k}{carry}"
+            packed = "_packed" if self.entry == "packed" else ""
+            return f"striped{self.arg}_k{k}{carry}{packed}"
         return self.name
 
 
@@ -107,7 +114,8 @@ def instances(quick: bool = False) -> List[Instance]:
         return [Instance("ppe", 4, "planes"), Instance("ppe", 4, "nib"),
                 Instance("genotype", 64)]
     return ([Instance("ppe", nr, e) for nr in PPE_ROWS for e in PPE_ENTRIES]
-            + [Instance("striped", h) for h in STRIPES]
+            + [Instance("striped", h, e) for h in STRIPES
+               for e in STRIPED_ENTRIES]
             + [Instance("genotype", 64), Instance("genotype", 32)])
 
 
@@ -238,6 +246,12 @@ class _Launcher:
                                                   inst.arg),
                     lambda: pf.ppe_forward_unique_plain(inst.entry, segs, tab,
                                                         trans))
+        if inst.kernel == "striped" and inst.entry == "packed":
+            segs = self.segments("packed")
+            return (lambda: ps.striped_forward_unique(segs, tab, trans,
+                                                      inst.arg),
+                    lambda: ps.striped_forward_unique_plain(segs, tab, trans,
+                                                            inst.arg))
         if inst.kernel == "striped":
             args = self.striped_args
             return (lambda: ps.striped_forward(*args, trans, inst.arg),

@@ -405,7 +405,7 @@ def test_warm_cache_instances_are_chip_smokes():
     required = set().union(*(chip_smoke.expected_instances(lib)
                              for lib in _kernels.KERNELS))
     assert {inst.machine_instance for inst in full} <= required
-    assert len({inst.name for inst in full}) == len(full) == 21
+    assert len({inst.name for inst in full}) == len(full) == 24
     quick = warm_cache.instances(quick=True)
     assert {i.name for i in quick} == {"ppe4_front_planes", "ppe4_front_nib",
                                        "genotype_f64"}

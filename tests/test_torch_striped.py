@@ -406,7 +406,10 @@ def test_striped_runner_matches_ppe_runner_and_reference():
         np.testing.assert_array_equal(job.result, ppe.result)
         np.testing.assert_array_equal(job.result, ref)
     med = runner.stage_medians()
-    assert {"pack", "h2d", "gather", "kernel", "finalize"} <= set(med)
+    # the entry reads the shipped rows itself: no stage between H2D and
+    # kernel
+    assert {"pack", "h2d", "kernel", "finalize"} <= set(med)
+    assert "gather" not in med and "gather" not in med["sum_ms"]
 
 
 def test_striped_runner_rounds_rows_to_the_stripe():

@@ -269,7 +269,9 @@ def test_striped_binding_matches_c_signature():
         source = handle.read()
     lib = types.SimpleNamespace(
         pairhmm_striped_forward=types.SimpleNamespace(),
+        pairhmm_striped_forward_unique=types.SimpleNamespace(),
         pairhmm_striped_launch_shape=types.SimpleNamespace(),
+        pairhmm_striped_unique_launch_shape=types.SimpleNamespace(),
     )
     _kernels._BINDERS["pairhmm_striped"](lib)
     for name in ("pairhmm_striped_forward", "pairhmm_striped_launch_shape"):
@@ -329,16 +331,22 @@ def test_striped_variants_change_one_detail_each():
 def test_chip_smoke_names_every_striped_instance():
     """chip_smoke.py names instances from their mangled symbols by every
     template argument, so no two striped instances merge, and expects K
-    1..KMAX(H), and K > KMAX(H) / 2 with the carry, at every H."""
+    1..KMAX(H), and K > KMAX(H) / 2 with the carry, at every H, for each
+    entry (the pair-major one and the unique-rows one, "_packed")."""
     import chip_smoke
 
-    sym = "_ZN12_GLOBAL__N_122striped_forward_kernelILi{}ELi{}ELb{}EEEvNS_4ArgsE"
-    assert chip_smoke.instance_name(sym.format(8, 16, 1)) == "striped8_k16_carry"
-    assert chip_smoke.instance_name(sym.format(32, 5, 0)) == "striped32_k5"
+    sym = ("_ZN12_GLOBAL__N_122striped_forward_kernelILi{}ELi{}ELb{}ELb{}EEEv"
+           "NS_4ArgsE")
+    assert chip_smoke.instance_name(sym.format(8, 16, 1, 0)) == "striped8_k16_carry"
+    assert chip_smoke.instance_name(sym.format(32, 5, 0, 0)) == "striped32_k5"
+    assert (chip_smoke.instance_name(sym.format(32, 5, 1, 1))
+            == "striped32_k5_carry_packed")
     ppe = "_ZN12_GLOBAL__N_118ppe_forward_kernelILi8ELb1EEEvPKiS2_S2_S2_PKfPfiii5Trans"
     assert chip_smoke.instance_name(ppe) == "ppe_k8_carry"
     want = chip_smoke.expected_instances("pairhmm_striped")
-    assert len(want) == sum(k + k - k // 2 for k in ps.MAX_ROWS_PER_LANE.values())
+    assert len(want) == 2 * sum(k + k - k // 2
+                                for k in ps.MAX_ROWS_PER_LANE.values())
     assert "striped16_k11_carry" in want and "striped16_k10_carry" not in want
-    assert {"striped32_k8_carry", "striped32_k5", "striped8_k20_carry"} <= want
+    assert {"striped32_k8_carry", "striped32_k5", "striped8_k20_carry",
+            "striped32_k5_packed", "striped8_k20_carry_packed"} <= want
     assert len(chip_smoke.expected_instances("pairhmm_ppe")) == 16
