@@ -49,12 +49,19 @@ genotyper_bench.py and scaling_bench.py, each JSON line parsed.  Last,
 the cold start (phase_cold), each run a fresh process: ``import torch``
 alone; chrM through --pairhmm native, which never loads torch; the 2 Mb
 contig through the default cuda CLI twice (torch imported on the
-runner's build thread, every kernel library a cache hit, identical to
-native); tools/warm_cache.py into an empty kernel cache, then chrM on
-that cache (every library a hit, no nvcc, golden).
-Every phase prints one JSON line and raises on failure.  The last lines are
-the card's name and power limit (nvidia-smi), one JSON object per kernel
-with its times, launches and bound, and ``{"ok": true, "device": ...}``.
+runner's build thread, the configuration's kernel library a cache hit,
+identical to native); tools/warm_cache.py into an empty kernel cache,
+then chrM on that cache (a hit, no nvcc, golden); chrM through the
+default cuda CLI into another empty cache (the ppe library alone built,
+golden).
+The seeded fixtures of the 2 Mb, 4-contig and long-read phases are made
+by make_fixture processes started after the first phase (the kernels'
+build, timed on an idle host) that run while the card runs the phases
+before them.  Every phase prints its JSON lines, then ``phase_s``, and
+raises on failure.  The last lines are the seconds per phase and in all
+(``total_s``), the card's name and power limit (nvidia-smi), one JSON
+object per kernel with its times, launches and bound, and ``{"ok": true,
+"device": ...}``.
 
 It needs one card and exits non-zero, printing no result, without one.
 It imports nothing of JAX and nothing of the JAX package.
@@ -66,13 +73,16 @@ import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import resource
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 # the timing, the bounds' peaks and the card's header are the port's
 # measurement tools' (gatk_hc_tpu_torch/tools/_timing.py): outside a
@@ -141,24 +151,96 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+class Fixture:
+    """One seeded ``make_fixture`` run in a subprocess (its own process group),
+    started at once so that it runs while the card runs earlier phases;
+    the phase that reads it calls ``join``."""
+
+    def __init__(self, out_dir, *argv):
+        self.dir = out_dir
+        self.argv = [out_dir, *argv]
+        self._err = tempfile.TemporaryFile()
+        self._t0 = time.perf_counter()
+        self._end = None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "gatk_hc_tpu_torch.tools.make_fixture",
+             *self.argv], cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=self._err, start_new_session=True)
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self):
+        self.proc.wait()
+        self._end = time.perf_counter()
+
+    def join(self, timeout_s=900):
+        """Wait for the generation -> {"fixture_gen_s": its own wall,
+        "fixture_wait_s": how long this call waited}.  Raises when it
+        exited non-zero or ran past ``timeout_s``."""
+        t0 = time.perf_counter()
+        self._waiter.join(timeout_s)
+        if self._end is None:
+            self.stop()
+            raise RuntimeError(f"make_fixture {self.argv} ran past "
+                               f"{timeout_s} s")
+        wait_s = time.perf_counter() - t0
+        if self.proc.returncode != 0:
+            self._err.seek(0)
+            tail = self._err.read()[-3000:].decode(errors="replace")
+            raise RuntimeError(f"make_fixture {self.argv} exited "
+                               f"{self.proc.returncode}:\n{tail}")
+        return {"fixture_gen_s": round(self._end - self._t0, 1),
+                "fixture_wait_s": round(wait_s, 1)}
+
+    def stop(self):
+        """End the generation and the processes it spawned, if running."""
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+
+
+def start_fixtures(tmp):
+    """The seeded fixtures of phase_contig, phase_tools and
+    phase_long_reads, all started now -> {name: Fixture}."""
+    fixtures = {
+        "chr20sim": Fixture(os.path.join(tmp, "chr20sim"), "--length",
+                            "2000000", "--name", "chr20sim"),
+        "ctg4": Fixture(os.path.join(tmp, "ctg4"), "--contigs", "4",
+                        "--length", str(CTG4_LENGTH), "--name", "ctg4"),
+    }
+    for name, length, read_len, _p, _s in LONG_READS:
+        fixtures[name] = Fixture(os.path.join(tmp, name), "--length",
+                                 str(length), "--read-length", str(read_len),
+                                 "--name", name)
+    return fixtures
+
+
 def phase_card():
     import torch
 
     smi = nvidia_smi()
     from gatk_hc_tpu_torch.ops import _kernels
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    _kernels.build_all()  # one nvcc per source, started together
+    _kernels.build_all()  # every nvcc process started together
     for name in _kernels.KERNELS:
         _kernels.load(name)
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_kernels.KERNELS)) as pool:
+        compiled = dict(zip(_kernels.KERNELS, pool.map(
+            lambda name: compiler_report(_kernels, name), _kernels.KERNELS)))
     emit({
         "phase": "card", "nvidia_smi": smi,
         "name": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "kernels": list(_kernels.KERNELS), "build_s": round(build_s, 3),
-        "compiled": {name: compiler_report(_kernels, name)
-                     for name in _kernels.KERNELS},
+        "libraries": _kernels.cache_report()["libraries"],
+        "report_s": round(time.perf_counter() - t0, 3),
+        "compiled": compiled,
     })
     return smi
 
@@ -235,8 +317,12 @@ def instance_report(_kernels, lib):
         return subprocess.run([tool, flag, lib], capture_output=True,
                               text=True, check=True, timeout=120).stdout
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:  # both dumps at once
+        usage, sass = pool.map(dump, ("--dump-resource-usage", "-sass"))
     out, fn = {}, None
-    for line in dump("--dump-resource-usage").splitlines():
+    for line in usage.splitlines():
         m = re.search(r"Function (\S+?):?\s*$", line)
         if m:
             fn = out.setdefault(instance_name(m.group(1)), {})
@@ -246,7 +332,7 @@ def instance_report(_kernels, lib):
             if m and fn is not None:
                 fn[key.lower()] = int(m.group(1))
     fn = None
-    for line in dump("-sass").splitlines():
+    for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = out.setdefault(instance_name(m.group(1)), {})
@@ -291,7 +377,8 @@ def make_pairs(rng, B, r_pad, c_pad):
 
 
 def kernel_inputs(read, qual, rlen, hap, clen, device):
-    """Pair-minor ppe inputs on ``device`` (the runner's plane tables)."""
+    """Pair-minor ppe inputs on ``device`` (the runner's plane tables,
+    gathered there)."""
     import numpy as np
     import torch
 
@@ -300,13 +387,14 @@ def kernel_inputs(read, qual, rlen, hap, clen, device):
         BASE_TABLE, INITIAL_CONSTANT_F32, PH2PR_F32,
     )
 
-    mask, omq_bits, q3_bits = plane_tables(BASE_TABLE, PH2PR_F32)
-    rows = np.stack([mask[read], omq_bits[qual], q3_bits[qual]])  # (3, B, R)
     init_y = (INITIAL_CONSTANT_F32 / clen.astype(np.float32)).astype(np.float32)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    mask, omq_bits, q3_bits = map(to, plane_tables(BASE_TABLE, PH2PR_F32))
+    read, qual, hap = (to(a).long() for a in (read, qual, hap))
+    rows = torch.stack([mask[read], omq_bits[qual], q3_bits[qual]])  # (3, B, R)
     return (
-        to(rows.transpose(2, 0, 1)), to(mask[hap].T), to(rlen), to(clen),
-        to(init_y),
+        rows.permute(2, 0, 1).contiguous(), mask[hap].T.contiguous(),
+        to(rlen), to(clen), to(init_y),
     )
 
 
@@ -342,9 +430,10 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
-def phase_kernels():
+def phase_kernels(oracle):
     """Every ppe NR instance against the plain version (bit for bit, all
-    pairs) and the NumPy oracle (bit for bit, 64 sampled pairs), and every
+    pairs) and the NumPy oracle (bit for bit, 64 sampled pairs, computed
+    by ``oracle``, a pool of host processes, while the card runs), and every
     striped H instance against the ppe kernel (bit for bit, all pairs), at
     every (r_pad, c_pad) of the default buckets and at LONG_SHAPE, B = the
     runner's group size, and at CARRY_SHAPE, B a quarter of it.  The
@@ -376,17 +465,14 @@ def phase_kernels():
     for r_pad, c_pad in shapes:
         B = group // 4 if (r_pad, c_pad) == CARRY_SHAPE else group
         read, qual, rlen, hap, clen = make_pairs(rng, B, r_pad, c_pad)
+        sample = rng.choice(B, 64, replace=False)
+        pending = [oracle.submit(
+            pairhmm_prob, read[k, : rlen[k]], qual[k, : rlen[k]],
+            hap[k, : clen[k]], DEFAULT_CONFIG.gop_char,
+            DEFAULT_CONFIG.gcp_char, np.float32, ftz=True) for k in sample]
         args = kernel_inputs(read, qual, rlen, hap, clen, "cuda")
         plain, plain_ms = timed_once(lambda: pt.ppe_forward_plain(*args, trans))
-        sample = rng.choice(B, 64, replace=False)
-        want = np.array([
-            np.float32(pairhmm_prob(
-                read[k, : rlen[k]], qual[k, : rlen[k]], hap[k, : clen[k]],
-                DEFAULT_CONFIG.gop_char, DEFAULT_CONFIG.gcp_char,
-                np.float32, ftz=True,
-            ))
-            for k in sample
-        ], np.float32)
+        want = np.array([np.float32(f.result()) for f in pending], np.float32)
         true_cells = int(rlen.astype(np.int64) @ clen.astype(np.int64))
         bound_ms, bound_by = ppe_bound(rlen, clen, c_pad)
         common = {"B": B, "r_pad": r_pad, "c_pad": c_pad,
@@ -563,7 +649,9 @@ def phase_front():
     pairs 12,345 .. 52,344 of one group as a chunk.  Each row also times
     the pair-minor entry (ppe<NR>) on the glue's inputs, in turns with the
     entry (``time_ms`` and ``time_ms_queued``), and the glue alone, and
-    gives the device-memory peak of the entry and of glue + ppe."""
+    gives the device-memory peak of the entry and of glue + ppe.  Where an
+    encoding's glue gives the inputs an earlier one gave, bit for bit, the
+    plain result is that encoding's (``plain_of`` names it)."""
     import numpy as np
     import torch
 
@@ -594,6 +682,7 @@ def phase_front():
     for (r_pad, c_pad), kind in cases:
         groups = [main_group(rng, r_pad, c_pad)
                   for _ in range(3 if kind == "fused3" else 1)]
+        plain_of = None  # (path, the glue's inputs, plain result, its ms)
         for path in FRONTS:
             payloads = [pack_group(runner, path, u) for u in groups]
             buf = join_payloads(payloads, runner._pinned)
@@ -604,16 +693,26 @@ def phase_front():
             front = lambda: pf.ppe_forward_unique(  # noqa: E731
                 path, segs, tab, trans, nr)
             got, front_mb = peak_mb(front)
-            want, plain_ms = timed_once(
-                lambda: pf.ppe_forward_unique_plain(path, segs, tab, trans))
+
             def glue():  # the plain glue's pair-minor inputs
                 parts = [pf.segment_inputs(path, g, tab) for g in segs]
                 return parts[0] if len(parts) == 1 else [
                     torch.cat([p[k] for p in parts], -1) for k in range(5)]
 
+            args = glue()
+            # the plain version is ppe_forward_plain of these inputs: where
+            # they equal an earlier encoding's bit for bit, so does its
+            # result, which is not computed again
+            if plain_of is not None and all(
+                    torch.equal(a, b) for a, b in zip(args, plain_of[1])):
+                want, plain_ms = plain_of[2:]
+            else:
+                want, plain_ms = timed_once(
+                    lambda: pf.ppe_forward_unique_plain(path, segs, tab,
+                                                        trans))
+                plain_of = (path, args, want, plain_ms)
             minor, glue_mb = peak_mb(
                 lambda: pt.ppe_forward(*glue(), trans, nr))
-            args = glue()
             pair_minor = lambda: pt.ppe_forward(*args, trans, nr)  # noqa: E731
             torch.cuda.synchronize()
             same = torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -632,7 +731,7 @@ def phase_front():
                 "nr_pad": groups[0].dims[0], "nh_pad": groups[0].dims[1],
                 "bit_equal_plain": same, "bit_equal_pair_minor": same_minor,
                 "max_abs_err": float((got - want).abs().max()),
-                "plain_ms": round(plain_ms, 3),
+                "plain_ms": round(plain_ms, 3), "plain_of": plain_of[0],
                 "bound_ms": round(bound_ms, 4), "bound_by": bound_by,
                 "library_ms": None,
                 "peak_mb_entry": round(front_mb, 1),
@@ -1291,8 +1390,9 @@ CONTIG_RUNS = {
 }
 
 
-def phase_contig(tmp):
-    """2 Mb contig at 30x: the cuda engine through the default (adaptive
+def phase_contig(tmp, fixture):
+    """2 Mb contig at 30x (``fixture``, started by start_fixtures and
+    joined here): the cuda engine through the default (adaptive
     shipping, ppe kernel, host genotyper), each shipping path of
     PATH_RUNS, the striped kernel and the genotype kernel (--genotyper
     cuda), each once and the default first and last (its two runs
@@ -1307,13 +1407,8 @@ def phase_contig(tmp):
     device peaks."""
     import torch
 
-    from gatk_hc_tpu_torch.tools import make_fixture
-
-    fix = os.path.join(tmp, "chr20sim")
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        make_fixture.main([fix, "--length", "2000000", "--name", "chr20sim"])
-    gen_s = time.perf_counter() - t0
+    gen = fixture.join()
+    fix = fixture.dir
     base = ["-I", os.path.join(fix, "chr20sim.sam"),
             "-R", os.path.join(fix, "chr20sim.fa")]
     order = list(CONTIG_RUNS)
@@ -1348,7 +1443,7 @@ def phase_contig(tmp):
     striped_units_row(units, striped_units, runs["striped32"])
     first = runs["ppe4"][0]
     row = {
-        "phase": "contig_2mb", "fixture_gen_s": round(gen_s, 1),
+        "phase": "contig_2mb", **gen,
         "default_cuda_max_memory_allocated_mb": [
             s["cuda_max_memory_allocated_mb"] for s in runs["ppe4"]],
         "regions": first["regions"], "variants": first["variants"],
@@ -1671,6 +1766,59 @@ FUZZ_LAUNCHES = {
 }
 
 
+# the fuzzer's seeds, split over this many processes (each its own runners
+# on the card): the diag arm is launch-bound host work on one core
+FUZZ_WORKERS = 4
+FUZZ_WORKER = ("import json, sys\n"
+               "from gatk_hc_tpu_torch.tools import fuzz_differential as fz\n"
+               "keep, arms, seeds, device, kwargs = json.loads(sys.argv[1])\n"
+               "runners = fz.ArmRunners(device)\n"
+               "for seed in seeds:\n"
+               "    print(json.dumps(fz.run_seed(seed, keep, arms, "
+               "runners=runners, **kwargs)), flush=True)\n")
+
+
+def fuzz_rows(seeds, keep, arms, workers=FUZZ_WORKERS, device="cuda",
+              **kwargs):
+    """fuzz_differential.run_seed(seed, keep, arms, **kwargs) on each
+    seed, the seeds split over ``workers`` fresh processes (seed i to
+    process i mod workers, each with its runners on ``device``), all
+    started together, each with its share of the host's cores for
+    torch's and OpenMP's thread pools (unless OMP_NUM_THREADS is set) ->
+    the seeds' rows in ``seeds``' order.  Raises when a process fails;
+    stops them all on the way out."""
+    threads = os.environ.get("OMP_NUM_THREADS") or str(
+        max(1, (os.cpu_count() or 1) // workers))
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=threads)
+    procs = []
+    try:
+        for w in range(min(workers, len(seeds))):
+            err = tempfile.TemporaryFile()
+            job = [keep, list(arms), list(seeds[w::workers]), device, kwargs]
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", FUZZ_WORKER, json.dumps(job)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True), err))
+        rows = {}
+        for proc, err in procs:
+            out, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                err.seek(0)
+                raise RuntimeError(
+                    f"fuzz worker exited {proc.returncode}:\n"
+                    f"{err.read()[-3000:].decode(errors='replace')}")
+            for line in out.splitlines():
+                if line.startswith("{"):
+                    row = json.loads(line)
+                    rows[row["seed"]] = row
+        return [rows[seed] for seed in seeds]
+    finally:
+        for proc, _err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def vcf_difference(a: bytes, b: bytes, n: int = 6):
     """The first ``n`` lines of each VCF that the other lacks."""
     la, lb = a.decode().splitlines(), b.decode().splitlines()
@@ -1678,12 +1826,14 @@ def vcf_difference(a: bytes, b: bytes, n: int = 6):
     return ([x for x in la if x not in sb][:n], [x for x in lb if x not in sa][:n])
 
 
-def phase_tools(tmp, contig_default):
+def phase_tools(tmp, contig_default, fixture):
     """The port's correctness tools on the card: (a) the differential
-    fuzzer (tools/fuzz_differential.py) on FUZZ_SEEDS with every arm, one
-    runner per device arm for all seeds, each seed's VCFs byte-identical
+    fuzzer (tools/fuzz_differential.py) on FUZZ_SEEDS with every arm, the
+    seeds split over FUZZ_WORKERS processes (fuzz_rows), one runner per
+    device arm for each process's seeds, each seed's VCFs byte-identical
     and each device arm launching its kernels (counts reset before each
-    arm, read after it); (b) a 4 x 500 kb contig fixture at 30x through
+    arm, read after it); (b) a 4 x 500 kb contig fixture at 30x
+    (``fixture``, started by start_fixtures and joined here) through
     --stream-contigs with the default cuda runner and 4 host threads (the
     contig switch and parse-ahead beside the dispatch worker), the same
     unstreamed and --pairhmm native, the three VCFs identical, with
@@ -1693,14 +1843,13 @@ def phase_tools(tmp, contig_default):
     import torch
 
     from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
-    from gatk_hc_tpu_torch.tools import check_truth, host_profile, make_fixture
+    from gatk_hc_tpu_torch.tools import check_truth, host_profile
     from gatk_hc_tpu_torch.tools import fuzz_differential as fz
 
-    runners = fz.ArmRunners("cuda")
     keep = os.path.join(tmp, "fuzz_failures")
     t0 = time.perf_counter()
-    for seed in FUZZ_SEEDS:
-        row = fz.run_seed(seed, keep, fz.ARMS, runners=runners)
+    for row in fuzz_rows(FUZZ_SEEDS, keep, fz.ARMS):
+        seed = row["seed"]
         emit({"phase": "tools_fuzz", **row})
         if not row["ok"]:
             kept = os.path.join(keep, f"seed{seed}")
@@ -1721,12 +1870,8 @@ def phase_tools(tmp, contig_default):
                                      f"{may}")
     fuzz_s = time.perf_counter() - t0
 
-    fix = os.path.join(tmp, "ctg4")
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        make_fixture.main([fix, "--contigs", "4", "--length",
-                           str(CTG4_LENGTH), "--name", "ctg4"])
-    gen_s = time.perf_counter() - t0
+    gen = fixture.join()
+    fix = fixture.dir
     base = ["-I", os.path.join(fix, "ctg4.sam"),
             "-R", os.path.join(fix, "ctg4.fa")]
     runs = {
@@ -1756,7 +1901,7 @@ def phase_tools(tmp, contig_default):
     truth = check_truth.check(os.path.join(tmp, "ctg4.stream_cuda.vcf"),
                               os.path.join(fix, "ctg4.truth.txt"))
     identical = {name: vcfs[name] == vcfs["native"] for name in runs}
-    emit({"phase": "tools_4contig_stream", "fixture_gen_s": round(gen_s, 1),
+    emit({"phase": "tools_4contig_stream", **gen,
           "identical_to_native": identical, "check_truth": truth,
           "fuzz_s": round(fuzz_s, 1), **done})
     if not all(identical.values()):
@@ -2111,11 +2256,11 @@ def front_unit_row(run, key, launches, inputs):
     return row
 
 
-def phase_long_reads(tmp):
+def phase_long_reads(tmp, fixtures):
     """Reads past the largest read bucket through the main path on the
     card (LONG_READS): (a) a 500 kb contig at 30x with 250 bp reads and a
-    250 kb one with 300 bp reads, made together by two make_fixture
-    processes; (b) on each, in this process, the default cuda CLI,
+    250 kb one with 300 bp reads (two of start_fixtures' processes, joined
+    here); (b) on each, in this process, the default cuda CLI,
     --pallas-algo striped, --genotyper cuda and --pairhmm native, each VCF
     byte-identical to native's, and --pairhmm diag on a LONG_WINDOW window
     identical to native's on it; each run's wall_s, bucket_counts and
@@ -2130,15 +2275,7 @@ def phase_long_reads(tmp):
     from gatk_hc_tpu_torch.tools import fuzz_differential as fz
 
     t_phase = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "gatk_hc_tpu_torch.tools.make_fixture",
-         os.path.join(tmp, name), "--length", str(length), "--read-length",
-         str(read_len), "--name", name], cwd=ROOT, stdout=subprocess.DEVNULL)
-        for name, length, read_len, _p, _s in LONG_READS]
-    for proc in procs:
-        if proc.wait(timeout=600) != 0:
-            raise RuntimeError(f"make_fixture exited {proc.returncode}")
-    gen_s = time.perf_counter() - t_phase
+    gen = {name: fixtures[name].join() for name, *_rest in LONG_READS}
 
     units, striped_groups = [], {}
     for name, length, read_len, ppe_r, striped_r in LONG_READS:
@@ -2235,7 +2372,7 @@ def phase_long_reads(tmp):
         shardmap_error = str(exc)
     else:
         shardmap_error = None
-    emit({"phase": "long_reads_summary", "fixture_gen_s": round(gen_s, 1),
+    emit({"phase": "long_reads_summary", "fixtures": gen,
           "fuzz_s": round(fuzz_s, 1), "shardmap_error": shardmap_error,
           "phase_s": round(time.perf_counter() - t_phase, 1)})
     if not shardmap_error or "exceeds largest bucket 224" not in shardmap_error:
@@ -2280,17 +2417,29 @@ def cold_cli(argv, env=None):
     return wall, stats, tail["torch_loaded"]
 
 
-def all_hits(name, init):
-    """The run found every kernel library in the cache and started no
-    nvcc (the cache's own record, init_profile.kernel_cache)."""
+def cache_is(name, init, cfg, status):
+    """The run's kernel cache (init_profile.kernel_cache) holds exactly the
+    libraries its configuration launches (_kernels.libraries_for), each
+    with ``status``: "hit" with no nvcc started, or "built" with each
+    library's nvcc processes (_kernels.nvcc_processes)."""
     cache = (init or {}).get("kernel_cache") or {}
     libs = cache.get("libraries") or {}
     from gatk_hc_tpu_torch.ops import _kernels
 
-    if (set(libs) != set(_kernels.KERNELS) or cache.get("nvcc_runs") != 0
-            or any(rec["status"] != "hit" for rec in libs.values())):
-        raise AssertionError(f"{name}: kernel cache {cache}")
+    want = _kernels.libraries_for(cfg)
+    nvcc_runs = 0 if status == "hit" else sum(
+        _kernels.nvcc_processes(n) for n in want)
+    if (set(libs) != set(want) or cache.get("nvcc_runs") != nvcc_runs
+            or any(rec["status"] != status for rec in libs.values())):
+        raise AssertionError(f"{name}: kernel cache {cache}, expected "
+                             f"{sorted(want)} {status}")
     return cache
+
+
+def all_hits(name, init, cfg):
+    """The run found each library of its configuration in the cache and
+    started no nvcc."""
+    return cache_is(name, init, cfg, "hit")
 
 
 def phase_cold(tmp, contig_default):
@@ -2299,13 +2448,18 @@ def phase_cold(tmp, contig_default):
     VCF, torch never loaded; (c) the 2 Mb contig of phase_contig through
     the default cuda CLI, twice: each VCF identical to native, torch
     imported on the build thread (init_profile.torch_import_s,
-    torch_preloaded false), every kernel library a cache hit, the walls
+    torch_preloaded false), each library of its configuration a cache
+    hit, the walls
     and main-thread stages beside phase_contig's warm in-process runs;
     (d) tools/warm_cache.py into an empty cache
     directory (every library built, every instance bit-equal to its plain
     version), then chrM through the cuda CLI with
-    GATK_HC_TPU_TORCH_KERNEL_CACHE on that directory: every library a hit,
-    no nvcc, the golden VCF."""
+    GATK_HC_TPU_TORCH_KERNEL_CACHE on that directory: the configuration's
+    library a hit, no nvcc, the golden VCF; (e) chrM through the default
+    cuda CLI into another empty cache directory: the ppe library alone
+    built (one nvcc), the golden VCF, its kernel_build_load_s beside (d)'s
+    ("cold_build" line)."""
+    from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
     from gatk_hc_tpu_torch.parallel.compile_cache import CACHE_ENV
 
     fixtures = os.path.join(ROOT, "fixtures")
@@ -2361,9 +2515,11 @@ def phase_cold(tmp, contig_default):
                 or "build_start_at_age_s" not in init):
             emit({**row, "contig_cold": runs})
             raise AssertionError(f"cold 2 Mb cuda run {k}: {runs[-1]}")
-        all_hits(f"cold 2 Mb cuda run {k}", init)
+        all_hits(f"cold 2 Mb cuda run {k}", init, DEFAULT_CONFIG)
     row["contig_cold"] = runs
     row["contig_warm_in_process"] = contig_default
+
+    from gatk_hc_tpu_torch.ops import _kernels
 
     cache = os.path.join(tmp, "kernel_cache")
     wall, lines = fresh_process(["-m", "gatk_hc_tpu_torch.tools.warm_cache",
@@ -2373,7 +2529,8 @@ def phase_cold(tmp, contig_default):
     row["warm_cache"] = warm
     counters = {c for inst in warm["instances"].values()
                 for c in inst["counters"]}
-    if (warm["nvcc_runs"] != len(warm["libraries"])
+    if (warm["nvcc_runs"] != sum(_kernels.nvcc_processes(n)
+                                 for n in warm["libraries"])
             or any(rec["status"] != "built"
                    for rec in warm["libraries"].values())
             or not all(inst["bit_equal_plain"]
@@ -2386,15 +2543,41 @@ def phase_cold(tmp, contig_default):
     with open(out, "rb") as handle:
         identical = handle.read() == golden
     init = stats.get("init_profile") or {}
-    row["chrM_cuda_on_warmed_cache"] = {
+    row["chrM_cuda_on_warmed_cache"] = warmed = {
         "process_wall_s": round(wall, 3), "wall_s": stats["wall_s"],
         "golden_identical": identical, "init_profile": init}
     emit(row)
     if not identical:
         raise AssertionError("chrM on the warmed cache: not the golden VCF")
-    if os.path.realpath(all_hits("chrM on the warmed cache", init)["dir"]) \
+    if os.path.realpath(all_hits("chrM on the warmed cache", init,
+                                 DEFAULT_CONFIG)["dir"]) \
             != os.path.realpath(cache):
         raise AssertionError(f"chrM on the warmed cache: {init}")
+
+    # (e) the default cuda CLI into another empty cache builds the ppe
+    # library alone
+    cache = os.path.join(tmp, "kernel_cache_cold")
+    out = os.path.join(tmp, "chrM.cold_build.vcf")
+    wall, stats, _loaded = cold_cli(chrm + ["-O", out], env={CACHE_ENV: cache})
+    with open(out, "rb") as handle:
+        identical = handle.read() == golden
+    init = stats.get("init_profile") or {}
+    row = {"phase": "cold_build", "process_wall_s": round(wall, 3),
+           "wall_s": stats["wall_s"], "golden_identical": identical,
+           "kernel_build_load_s": init.get("kernel_build_load_s"),
+           "kernel_cache": init.get("kernel_cache"),
+           "on_warmed_cache": {
+               "process_wall_s": warmed["process_wall_s"],
+               "kernel_build_load_s": warmed["init_profile"].get(
+                   "kernel_build_load_s")}}
+    emit(row)
+    if not identical:
+        raise AssertionError("chrM into an empty cache: not the golden VCF")
+    built = cache_is("chrM into an empty cache", init, DEFAULT_CONFIG,
+                     "built")
+    if (set(built["libraries"]) != {"pairhmm_ppe"}
+            or os.path.realpath(built["dir"]) != os.path.realpath(cache)):
+        raise AssertionError(f"chrM into an empty cache: {built}")
 
 
 def long_read_unit(row):
@@ -2406,6 +2589,7 @@ def long_read_unit(row):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     from gatk_hc_tpu_torch.config import DEFAULT_CONFIG
@@ -2413,28 +2597,49 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi = phase_card()
-    kernels = phase_kernels()
-    fronts = phase_front()
-    striped_fronts = phase_striped_front()
-    genotypes = phase_genotyper()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        emit({"phase": "phase_s", "name": name, "phase_s": phase_s[name]})
+        return out
+
+    fixtures = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        chrm_launches = phase_chrm(tmp)
-        f32_launches, f32_tiles = phase_chrm_engines(tmp)
-        chrm_launches.update(f32_launches)
-        contig_launches, contig_tiles, contig_default = phase_contig(tmp)
-        phase_multi(tmp)
-        phase_tools(tmp, contig_default)
-        phase_bench()
-        long_reads = phase_long_reads(tmp)
-        phase_cold(tmp, contig_default)
+        try:
+            smi = timed("card", phase_card)
+            fixtures = start_fixtures(tmp)
+            with ProcessPoolExecutor(os.cpu_count() or 1, mp_context=(
+                    multiprocessing.get_context("forkserver"))) as oracle:
+                kernels = timed("kernels", phase_kernels, oracle)
+            fronts = timed("front", phase_front)
+            striped_fronts = timed("striped_front", phase_striped_front)
+            genotypes = timed("genotyper", phase_genotyper)
+            chrm_launches = timed("chrM", phase_chrm, tmp)
+            f32_launches, f32_tiles = timed("chrM_engines",
+                                            phase_chrm_engines, tmp)
+            chrm_launches.update(f32_launches)
+            contig_launches, contig_tiles, contig_default = timed(
+                "contig", phase_contig, tmp, fixtures["chr20sim"])
+            timed("multi", phase_multi, tmp)
+            timed("tools", phase_tools, tmp, contig_default,
+                  fixtures["ctg4"])
+            timed("bench", phase_bench)
+            long_reads = timed("long_reads", phase_long_reads, tmp,
+                               fixtures)
+            timed("cold", phase_cold, tmp, contig_default)
+        finally:
+            for fixture in fixtures.values():
+                fixture.stop()
     # the genotype kernel at the tiles its main-path runs gave it: the
     # kernels line reports each instance at its run's most common shape
-    main_tiles = {
+    main_tiles = timed("genotyper_main", lambda: {
         "genotype_f64": phase_genotyper_main("2 Mb --genotyper cuda",
                                              contig_tiles),
         "genotype_f32": phase_genotyper_main("chrM f32 genotyper", f32_tiles),
-    }
+    })
     lines = []
     for name in [f"ppe{nr}" for nr in (1, 2, 4, 8)] + [
         f"striped{h}" for h in STRIPES
@@ -2517,6 +2722,8 @@ def main() -> int:
             "shape": {"S": rep["S"], "R": rep["R"], "H": rep["H"]},
         })
     assert [line["name"] for line in lines] == list(KERNEL_NAMES)
+    emit({"phase": "total", "total_s": round(time.perf_counter() - t_main, 1),
+          "phase_s": phase_s})
     print(smi, flush=True)
     emit({"kernels": lines})
     emit({"ok": True, "device": {

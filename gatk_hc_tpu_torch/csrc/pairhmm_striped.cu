@@ -489,40 +489,115 @@ cudaError_t with_instance(int k, int r_pad, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <class F>
-cudaError_t with_height(int stripe, int k, int r_pad, F&& f) {
-  switch (stripe) {
-    case 8: return with_instance<8>(k, r_pad, [&](auto kc, auto cc) {
-        return f(std::integral_constant<int, 8>{}, kc, cc); });
-    case 16: return with_instance<16>(k, r_pad, [&](auto kc, auto cc) {
-        return f(std::integral_constant<int, 16>{}, kc, cc); });
-    case 32: return with_instance<32>(k, r_pad, [&](auto kc, auto cc) {
-        return f(std::integral_constant<int, 32>{}, kc, cc); });
-    default: return cudaErrorInvalidValue;
+// The instances of stripe height H for one source, by k: launched on a's
+// pairs, or their launch shape at c_pad into o[3].
+template <int H, bool PACKED>
+int launch_height(const Args& a, int k, cudaStream_t s) {
+  return static_cast<int>(
+      with_instance<H>(k, a.r_pad, [&](auto kc, auto cc) {
+        return launch<H, decltype(kc)::value, decltype(cc)::value, PACKED>(
+            a, s);
+      }));
+}
+
+template <int H, bool PACKED>
+int shape_height(int r_pad, int c_pad, int k, int* o) {
+  return static_cast<int>(with_instance<H>(k, r_pad, [&](auto kc, auto cc) {
+    return shape<H, decltype(kc)::value, decltype(cc)::value, PACKED>(c_pad,
+                                                                       o);
+  }));
+}
+
+}  // namespace
+
+// Translation units.  The library is built from this one source as seven
+// translation units, compiled at once and linked into one library
+// (ops/_kernels.py UNITS): -DSTRIPED_UNIT=U for U = 1..6 compiles the
+// instances of one stripe height and one source, U = 1 + 2 h + PACKED with
+// h = 0, 1, 2 for H = 8, 16, 32, behind two unmangled functions, and
+// -DSTRIPED_UNIT=0 the C entry points, which call them.  H 8 holds half of
+// the 168 instances, so one unit per height would leave half of the work
+// in one.  Built without STRIPED_UNIT, the source is one unit that holds
+// everything.
+#define STRIPED_UNIT_DECLARE(U)                                             \
+  extern "C" int pairhmm_striped_unit##U##_launch(const void* a, int k,     \
+                                                  void* stream);            \
+  extern "C" int pairhmm_striped_unit##U##_shape(int r_pad, int c_pad,      \
+                                                 int k, void* out);
+#define STRIPED_UNIT_DEFINE(U, H, PACKED)                                   \
+  extern "C" int pairhmm_striped_unit##U##_launch(const void* a, int k,     \
+                                                  void* stream) {           \
+    return launch_height<H, PACKED>(*static_cast<const Args*>(a), k,        \
+                                    static_cast<cudaStream_t>(stream));     \
+  }                                                                         \
+  extern "C" int pairhmm_striped_unit##U##_shape(int r_pad, int c_pad,      \
+                                                 int k, void* out) {        \
+    return shape_height<H, PACKED>(r_pad, c_pad, k, static_cast<int*>(out)); \
   }
+
+STRIPED_UNIT_DECLARE(1)
+STRIPED_UNIT_DECLARE(2)
+STRIPED_UNIT_DECLARE(3)
+STRIPED_UNIT_DECLARE(4)
+STRIPED_UNIT_DECLARE(5)
+STRIPED_UNIT_DECLARE(6)
+#if !defined(STRIPED_UNIT) || STRIPED_UNIT == 1
+STRIPED_UNIT_DEFINE(1, 8, false)
+#endif
+#if !defined(STRIPED_UNIT) || STRIPED_UNIT == 2
+STRIPED_UNIT_DEFINE(2, 8, true)
+#endif
+#if !defined(STRIPED_UNIT) || STRIPED_UNIT == 3
+STRIPED_UNIT_DEFINE(3, 16, false)
+#endif
+#if !defined(STRIPED_UNIT) || STRIPED_UNIT == 4
+STRIPED_UNIT_DEFINE(4, 16, true)
+#endif
+#if !defined(STRIPED_UNIT) || STRIPED_UNIT == 5
+STRIPED_UNIT_DEFINE(5, 32, false)
+#endif
+#if !defined(STRIPED_UNIT) || STRIPED_UNIT == 6
+STRIPED_UNIT_DEFINE(6, 32, true)
+#endif
+
+#if !defined(STRIPED_UNIT) || STRIPED_UNIT == 0
+namespace {
+
+using UnitLaunch = int (*)(const void*, int, void*);
+using UnitShape = int (*)(int, int, int, void*);
+// by U - 1
+constexpr UnitLaunch UNIT_LAUNCH[6] = {
+    pairhmm_striped_unit1_launch, pairhmm_striped_unit2_launch,
+    pairhmm_striped_unit3_launch, pairhmm_striped_unit4_launch,
+    pairhmm_striped_unit5_launch, pairhmm_striped_unit6_launch};
+constexpr UnitShape UNIT_SHAPE[6] = {
+    pairhmm_striped_unit1_shape, pairhmm_striped_unit2_shape,
+    pairhmm_striped_unit3_shape, pairhmm_striped_unit4_shape,
+    pairhmm_striped_unit5_shape, pairhmm_striped_unit6_shape};
+
+// U - 1 of the unit holding stripe height `stripe`'s instances for the
+// source, -1 for another stripe height.
+int unit_index(int stripe, bool packed) {
+  const int h = stripe == 8 ? 0 : stripe == 16 ? 1 : stripe == 32 ? 2 : -1;
+  return h < 0 ? -1 : 2 * h + (packed ? 1 : 0);
 }
 
 // The instance for (stripe, k, r_pad) and the source, launched on a's
 // pairs.
 template <bool PACKED>
 int launch_any(const Args& a, int stripe, int k, cudaStream_t s) {
-  return static_cast<int>(
-      with_height(stripe, k, a.r_pad, [&](auto h, auto kc, auto cc) {
-        return launch<decltype(h)::value, decltype(kc)::value,
-                      decltype(cc)::value, PACKED>(a, s);
-      }));
+  const int u = unit_index(stripe, PACKED);
+  if (u < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return UNIT_LAUNCH[u](&a, k, s);
 }
 
 // The launch shape of that instance at c_pad into out[3].
 template <bool PACKED>
 int shape_any(int r_pad, int c_pad, int stripe, int k, void* out) {
-  auto* o = static_cast<int*>(out);
-  if (r_pad <= 0 || c_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      with_height(stripe, k, r_pad, [&](auto h, auto kc, auto cc) {
-        return shape<decltype(h)::value, decltype(kc)::value,
-                     decltype(cc)::value, PACKED>(c_pad, o);
-      }));
+  const int u = unit_index(stripe, PACKED);
+  if (r_pad <= 0 || c_pad <= 0 || u < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return UNIT_SHAPE[u](r_pad, c_pad, k, out);
 }
 
 }  // namespace
@@ -622,3 +697,4 @@ extern "C" int pairhmm_striped_unique_launch_shape(int r_pad, int c_pad,
                                                    void* out) {
   return shape_any<true>(r_pad, c_pad, stripe, k, out);
 }
+#endif  // the C entry points

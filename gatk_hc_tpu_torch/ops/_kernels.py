@@ -18,7 +18,9 @@ process.  A build compiles to a private temporary name that os.replace
 moves into place (safe when several processes build at once).  Each
 library's outcome in this process, ``hit`` (found in the cache) or
 ``built`` (nvcc ran), with its seconds, is in ``cache_report()``
-(``init_profile["kernel_cache"]`` in the CLI's --stats).  A failed build
+(``init_profile["kernel_cache"]`` in the CLI's --stats); the CLI's
+runner builds the libraries of its configuration (``libraries_for``) and
+tools/warm_cache.py all of them (``build_all``).  A failed build
 raises, and so does a cached library that fails to load, with its path:
 there is no silent rebuild and no fallback (the reference's ``aot.load``
 falls back to tracing instead).
@@ -40,7 +42,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..parallel.compile_cache import DEFAULT_CACHE_DIR
 
@@ -56,6 +58,16 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-fmad=false", "-ftz=true",
 )
+# Libraries compiled as several translation units of their one source,
+# one nvcc -c per unit, all started together, then linked into the one
+# library: name -> each unit's define.  The striped source's 168 instances
+# took 45-74 s of nvcc as one unit on an 8-core host, 17-26 s as seven;
+# the one unit with --split-compile=0 took 33-35 s and changed the machine
+# code of 3 striped and 13 ppe functions (PERF.md section 6).
+# csrc/pairhmm_striped.cu says what each unit holds.
+UNITS: Dict[str, Tuple[str, ...]] = {
+    "pairhmm_striped": tuple(f"-DSTRIPED_UNIT={u}" for u in range(7)),
+}
 
 # Kernel launches per instance ("ppe<NR>", "striped<H>"); each wrapper adds
 # one where it launches its kernel and nowhere else (chip_smoke.py and the
@@ -152,6 +164,8 @@ def library_key(name: str) -> str:
             digest.update(os.path.relpath(path, CSRC).encode() + b"\0")
             digest.update(handle.read())
     digest.update(b"\0".join(f.encode() for f in NVCC_FLAGS))
+    for unit in UNITS.get(name, ()):
+        digest.update(b"\0" + unit.encode())
     digest.update(toolkit_identity())
     return digest.hexdigest()[:16]
 
@@ -167,8 +181,27 @@ def _note(name: str, status: str, seconds: float) -> None:
         _record.setdefault(name, {"status": status, "s": round(seconds, 3)})
 
 
+def nvcc_processes(name: str) -> int:
+    """The nvcc processes a build of ``name`` starts: one, or one per unit
+    and one that links."""
+    return len(UNITS.get(name, ())) + 1
+
+
+def _nvcc(name: str, args: List[str]) -> None:
+    global _nvcc_runs
+    cmd = [nvcc_path(), *args]
+    with _record_lock:
+        _nvcc_runs += 1
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is already cached."""
+    """Compile ``csrc/<name>.cu`` unless its library is already cached: one
+    nvcc, or for a library of several UNITS one ``nvcc -c`` per unit, all
+    started together, then one that links their objects."""
     t0 = time.perf_counter()
     out = library_path(name)
     if os.path.exists(out):
@@ -178,38 +211,67 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(out), prefix=f".{name}-",
                                suffix=".so")
     os.close(fd)
+    src = os.path.join(CSRC, name + ".cu")
+    objs = [f"{tmp}.{u}.o" for u in range(len(UNITS.get(name, ())))]
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, os.path.join(CSRC, name + ".cu"),
-               "-o", tmp]
-        global _nvcc_runs
-        with _record_lock:
-            _nvcc_runs += 1
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}"
-            )
+        if objs:
+            from concurrent.futures import ThreadPoolExecutor
+
+            flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            with ThreadPoolExecutor(len(objs)) as pool:
+                list(pool.map(
+                    lambda unit, obj: _nvcc(
+                        name, [*flags, unit, "-c", src, "-o", obj]),
+                    UNITS[name], objs))
+            _nvcc(name, [*NVCC_FLAGS, *objs, "-o", tmp])
+        else:
+            _nvcc(name, [*NVCC_FLAGS, src, "-o", tmp])
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for path in [tmp, *objs]:
+            if os.path.exists(path):
+                os.unlink(path)
     _note(name, "built", time.perf_counter() - t0)
     return out
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every kernel library at once (one nvcc per source, all
-    started together) -> {name: library path}."""
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile the kernel libraries ``names`` (every library when None) at
+    once, all their nvcc processes started together -> {name: library
+    path}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+    names = tuple(KERNELS if names is None else names)
+    if not names:
+        return {}
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
+def libraries_for(cfg) -> Tuple[str, ...]:
+    """The kernel libraries a run of ``cfg`` (an HCConfig) launches, which
+    the CLI's runner builds ahead (ops/runner.py::BackgroundRunner): on
+    the cuda engine the ppe library unless cfg.pallas_algo is "striped",
+    the striped library when it is, and the genotyper library with
+    cfg.genotyper_engine "cuda".  The diag, native and python engines
+    launch none of the PairHMM libraries, and no cuda run launches one
+    outside this rule (the f64 rescue runs on the host).  The shardmap
+    engine, which has no runner to build ahead, builds its PairHMM
+    library at its first ``load``."""
+    libs = []
+    if cfg.pairhmm_engine == "cuda":
+        libs.append("pairhmm_striped" if cfg.pallas_algo == "striped"
+                    else "pairhmm_ppe")
+    if cfg.genotyper_engine == "cuda":
+        libs.append("genotyper")
+    return tuple(libs)
 
 
 def cache_report() -> Dict[str, object]:
     """This process's kernel cache: its directory, the nvcc processes it
-    started and, per library built or looked up, ``hit`` or ``built`` (its
-    first outcome in this process) and the seconds that took."""
+    started (``nvcc_runs``) and, per library built or looked up, ``hit``
+    or ``built`` (its first outcome in this process) and the seconds that
+    took."""
     with _record_lock:
         return {
             "dir": _cache_dir,

@@ -13,7 +13,10 @@ The runner on the card (``TorchPairHMMRunner``, ``DiagPairHMMRunner``,
 worker) lives in ops/torch_runner.py.  ``BackgroundRunner`` imports torch
 and that module on its build thread, so that the import overlaps the
 host's parse and assembly, as the reference's build thread imports JAX;
-a ``--pairhmm native`` or ``python`` run never loads torch.  The names of
+a ``--pairhmm native`` or ``python`` run never loads torch.  The same
+thread builds and loads only the kernel libraries the configuration
+launches (ops/_kernels.py::libraries_for), as the reference compiles only
+the programs its run dispatches.  The names of
 ops/torch_runner.py still resolve from here (``__getattr__``, PEP 562),
 importing torch at that first access.
 
@@ -296,12 +299,22 @@ class _DaemonWorker:
 class BackgroundRunner:
     """Cold-start overlap: on a background thread ("hc-build"), imports
     torch and the runner's torch modules, builds and loads the kernel
-    libraries (ops/_kernels.py), initialises the CUDA context and the device
-    tables (the TorchPairHMMRunner constructor), and starts the runner's
-    prewarm, so that those seconds run concurrently with the host's parse
-    and assembly.  The first submit/drain/run joins the build.  A build or
+    libraries the configuration launches (ops/_kernels.py::libraries_for:
+    the ppe or the striped library, and the genotyper's with --genotyper
+    cuda), initialises the CUDA context and the device tables (the
+    TorchPairHMMRunner constructor), and starts the runner's prewarm, so
+    that those seconds run concurrently with the host's parse and
+    assembly.  The first submit/drain/run joins the build.  A build or
     CUDA error is stored and raised at first use; a build still running
     after cfg.device_timeout_s raises DeviceWedgedError there.
+
+    Only the configuration's libraries are built, as the reference
+    compiles only the programs its run dispatches (its prewarm traces the
+    first buckets' programs, the rest compile at first dispatch): on an
+    empty kernel cache a default run waits for the ppe library's nvcc
+    alone.  A library reached outside that set (a tool, a test) builds at
+    its first ``_kernels.load``, the same kernel from the same cache;
+    tools/warm_cache.py fills every library.
 
     The build thread is the run's first importer of torch and of the
     runner's torch modules: nothing else of the run touches them before
@@ -339,8 +352,9 @@ class BackgroundRunner:
                     from . import _kernels
 
                     t2 = time.perf_counter()
-                    _kernels.build_all()  # one nvcc per source, together
-                    for name in _kernels.KERNELS:
+                    names = _kernels.libraries_for(cfg)
+                    _kernels.build_all(names)  # one nvcc each, together
+                    for name in names:
                         _kernels.load(name)
                     runner.init_profile["kernel_build_load_s"] = round(
                         time.perf_counter() - t2, 3)

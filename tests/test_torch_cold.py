@@ -237,6 +237,7 @@ def test_stats_without_jobs_skip_a_failed_build(tmp_path):
 
 _STUB_NVCC = """\
 #!/bin/sh
+if [ -n "$STUB_NVCC_LOG" ]; then echo "$*" >> "$STUB_NVCC_LOG"; fi
 out=""
 while [ $# -gt 0 ]; do
   if [ "$1" = "-o" ]; then out="$2"; shift; fi
@@ -424,3 +425,325 @@ def test_warm_cache_inputs_on_cpu():
         assert launcher.equal(got, plain())
         first = got[0] if isinstance(got, tuple) else got
         assert torch.isfinite(first).all() and (first != 0).any()
+
+
+# -- the libraries a run builds ------------------------------------------
+
+@pytest.mark.parametrize("engine,algo,genotyper,ppe_rows,stripe,want", [
+    ("cuda", "ppe", "host", 4, 32, ("pairhmm_ppe",)),
+    ("cuda", "ppe", "host", 1, 8, ("pairhmm_ppe",)),
+    ("cuda", "ppe", "cuda", 8, 16, ("pairhmm_ppe", "genotyper")),
+    ("cuda", "striped", "host", 4, 32, ("pairhmm_striped",)),
+    ("cuda", "striped", "host", 2, 8, ("pairhmm_striped",)),
+    ("cuda", "striped", "cuda", 1, 16, ("pairhmm_striped", "genotyper")),
+    ("shardmap", "ppe", "host", 4, 32, ()),
+    ("shardmap", "striped", "cuda", 4, 16, ("genotyper",)),
+    ("native", "ppe", "cuda", 4, 32, ("genotyper",)),
+    ("native", "striped", "host", 4, 32, ()),
+    ("diag", "ppe", "host", 4, 32, ()),
+    ("python", "ppe", "cuda", 2, 8, ("genotyper",)),
+])
+def test_libraries_for(engine, algo, genotyper, ppe_rows, stripe, want):
+    """The libraries a configuration's runner builds ahead: ppe or striped
+    on the cuda engine by cfg.pallas_algo (whatever the rows per pair or
+    the stripe height), the genotyper's with --genotyper cuda; shardmap
+    builds its PairHMM library at first load."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG, pairhmm_engine=engine, pallas_algo=algo,
+        genotyper_engine=genotyper, ppe_rows=ppe_rows, stripe_height=stripe)
+    assert _kernels.libraries_for(cfg) == want
+    assert set(want) <= set(_kernels.KERNELS)
+
+
+def _stub_kernel_sources(csrc):
+    for name in _kernels.KERNELS:
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+
+
+def test_build_all_builds_the_names_given(stub_toolkit):
+    _stub_kernel_sources(stub_toolkit["csrc"])
+    assert _kernels.build_all(()) == {}
+    assert _kernels.cache_report()["nvcc_runs"] == 0
+    got = _kernels.build_all(("pairhmm_ppe",))
+    assert list(got) == ["pairhmm_ppe"]
+    rep = _kernels.cache_report()
+    assert rep["nvcc_runs"] == 1 and set(rep["libraries"]) == {"pairhmm_ppe"}
+    everything = _kernels.build_all()  # no names: every library
+    assert list(everything) == list(_kernels.KERNELS)
+    assert all(os.path.exists(path) for path in everything.values())
+    rep = _kernels.cache_report()
+    assert rep["nvcc_runs"] == sum(  # ppe was a hit
+        _kernels.nvcc_processes(n) for n in _kernels.KERNELS)
+    assert {n: r["status"] for n, r in rep["libraries"].items()} == {
+        "pairhmm_ppe": "built", "pairhmm_striped": "built",
+        "genotyper": "built"}
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"pallas_algo": "striped"}, {"genotyper_engine": "cuda"},
+    {"pallas_algo": "striped", "stripe_height": 8,
+     "genotyper_engine": "cuda"},
+])
+def test_background_runner_builds_its_libraries_only(stub_toolkit,
+                                                     monkeypatch, overrides):
+    """The build thread of a runner on a cuda device builds (one nvcc
+    each) and loads exactly the configuration's libraries, and reports
+    them in init_profile.kernel_cache."""
+    import dataclasses
+
+    import torch
+
+    _stub_kernel_sources(stub_toolkit["csrc"])
+    loaded = []
+
+    def load(name):
+        loaded.append(name)
+        return _kernels.build(name)
+
+    class CudaRunner:
+        def __init__(self, cfg, device=None, devices=None):
+            self.device = torch.device("cuda")
+            self.init_profile = {}
+
+        def prewarm(self):
+            pass
+
+        def stop_prewarm(self):
+            pass
+
+    monkeypatch.setattr(_kernels, "load", load)
+    monkeypatch.setattr(runner_mod, "TorchPairHMMRunner", CudaRunner)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, **overrides)
+    bg = runner_mod.BackgroundRunner(cfg, device="cuda")
+    init = bg.runner.init_profile
+    bg._thread.join(30)
+    want = _kernels.libraries_for(cfg)
+    assert sorted(loaded) == sorted(want)
+    cache = init["kernel_cache"]
+    assert cache["nvcc_runs"] == sum(_kernels.nvcc_processes(n)
+                                     for n in want)
+    assert {n: r["status"] for n, r in cache["libraries"].items()} == {
+        name: "built" for name in want}
+    assert init["kernel_build_load_s"] >= 0
+    assert sorted(os.listdir(stub_toolkit["cache"])) == sorted(
+        os.path.basename(_kernels.library_path(name)) for name in want)
+
+
+def test_chip_smoke_cache_checks_follow_the_configuration():
+    """chip_smoke.all_hits wants the configuration's libraries, each a hit
+    with no nvcc; cache_is(..., "built") each library's nvcc processes."""
+    import dataclasses
+
+    import chip_smoke
+
+    def init(nvcc_runs, **libs):
+        return {"kernel_cache": {"dir": "d", "nvcc_runs": nvcc_runs,
+                                 "libraries": {n: {"status": s, "s": 0.0}
+                                               for n, s in libs.items()}}}
+
+    default = DEFAULT_CONFIG
+    striped = dataclasses.replace(DEFAULT_CONFIG, pallas_algo="striped",
+                                  genotyper_engine="cuda")
+    chip_smoke.all_hits("ok", init(0, pairhmm_ppe="hit"), default)
+    chip_smoke.all_hits("ok", init(0, pairhmm_striped="hit", genotyper="hit"),
+                        striped)
+    chip_smoke.cache_is("ok", init(1, pairhmm_ppe="built"), default, "built")
+    striped_built = init(_kernels.nvcc_processes("pairhmm_striped") + 1,
+                         pairhmm_striped="built", genotyper="built")
+    chip_smoke.cache_is("ok", striped_built, striped, "built")
+    bad = [
+        (init(0, pairhmm_ppe="hit", pairhmm_striped="hit", genotyper="hit"),
+         default),  # every library, as before: more than the run launches
+        (init(0, pairhmm_ppe="hit"), striped),
+        (init(1, pairhmm_ppe="hit"), default),
+        (init(0, pairhmm_ppe="built"), default),
+        ({}, default),
+    ]
+    for got, cfg in bad:
+        with pytest.raises(AssertionError, match="kernel cache"):
+            chip_smoke.all_hits("bad", got, cfg)
+    with pytest.raises(AssertionError, match="kernel cache"):
+        chip_smoke.cache_is("bad", init(0, pairhmm_ppe="built"), default,
+                            "built")
+    with pytest.raises(AssertionError, match="kernel cache"):
+        chip_smoke.cache_is("bad", init(2, pairhmm_striped="built",
+                                        genotyper="built"), striped, "built")
+
+
+def test_chip_smoke_fixture_in_the_background(tmp_path):
+    """chip_smoke.Fixture: a seeded make_fixture process, joined with its
+    own wall and the wait; the same bytes as make_fixture in process; a
+    failed generation raises at join."""
+    import chip_smoke
+    from gatk_hc_tpu_torch.tools import make_fixture
+
+    argv = ("--length", "3000", "--depth", "4", "--name", "tiny")
+    fix = chip_smoke.Fixture(str(tmp_path / "bg"), *argv)
+    row = fix.join(timeout_s=120)
+    assert set(row) == {"fixture_gen_s", "fixture_wait_s"}
+    assert row["fixture_gen_s"] > 0 and fix.dir == str(tmp_path / "bg")
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_fixture.main([str(tmp_path / "fg"), *argv])
+    for suffix in (".sam", ".fa"):
+        assert ((tmp_path / "bg" / f"tiny{suffix}").read_bytes()
+                == (tmp_path / "fg" / f"tiny{suffix}").read_bytes())
+
+    bad = chip_smoke.Fixture(str(tmp_path / "bad"), "--length", "many")
+    with pytest.raises(RuntimeError, match="exited 2"):
+        bad.join(timeout_s=120)
+    bad.stop()  # ended already: nothing to stop
+
+
+def test_striped_units_are_the_sources(stub_toolkit):
+    """The striped library builds from its one source as the units that
+    source defines: STRIPED_UNIT 0 (the C entry points) and 1..6, unit
+    1 + 2 h + PACKED holding stripe height (8, 16, 32)[h]; its key hashes
+    that source and the units' defines."""
+    import re
+
+    path = os.path.join(os.path.dirname(_kernels.__file__), os.pardir,
+                        "csrc", "pairhmm_striped.cu")
+    with open(path) as handle:
+        source = handle.read()
+    assert _kernels.UNITS["pairhmm_striped"] == tuple(
+        f"-DSTRIPED_UNIT={u}" for u in range(7))
+    guarded = {int(u) for u in re.findall(r"STRIPED_UNIT == (\d+)", source)}
+    assert guarded == set(range(7))
+    defined = {int(u): (int(h), p == "true") for u, h, p in re.findall(
+        r"^STRIPED_UNIT_DEFINE\((\d+), (\d+), (true|false)\)", source, re.M)}
+    assert defined == {1 + 2 * i + p: (h, bool(p))
+                       for i, h in enumerate((8, 16, 32)) for p in (0, 1)}
+    assert set(_kernels.UNITS) <= set(_kernels.KERNELS)
+    (stub_toolkit["csrc"] / "pairhmm_striped.cu").write_text(source)
+    assert _kernels.sources("pairhmm_striped") == [
+        str(stub_toolkit["csrc"] / "pairhmm_striped.cu")]
+
+
+def test_stub_build_of_units(stub_toolkit, monkeypatch, tmp_path):
+    """A library of several units: one nvcc -c per unit with its define
+    (no -shared), all started before the link, then one nvcc that links
+    their objects with -shared; the objects are removed, each process
+    counts, and the units enter the key."""
+    log = tmp_path / "nvcc.log"
+    monkeypatch.setenv("STUB_NVCC_LOG", str(log))
+    key = _kernels.library_key("toy")
+    units = ("-DTOY_UNIT=0", "-DTOY_UNIT=1", "-DTOY_UNIT=2")
+    monkeypatch.setitem(_kernels.UNITS, "toy", units)
+    assert _kernels.library_key("toy") != key
+    path = _kernels.build("toy")
+    calls = [line.split() for line in log.read_text().splitlines()]
+    assert len(calls) == len(units) + 1
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(next(a for a in c if a.startswith("-DTOY_UNIT"))
+                  for c in compiles) == list(units)
+    for call in compiles:
+        assert "-c" in call and "-shared" not in call
+        assert call[call.index("-c") + 1].endswith("toy.cu")
+    objs = [call[call.index("-o") + 1] for call in compiles]
+    assert "-shared" in link and set(objs) <= set(link)
+    assert link[link.index("-o") + 1] not in objs
+    assert os.listdir(stub_toolkit["cache"]) == [os.path.basename(path)]
+    assert _kernels.cache_report()["nvcc_runs"] == len(calls) == 4
+    assert _kernels.nvcc_processes("toy") == 4
+
+
+def test_stub_failed_unit_raises_and_leaves_nothing(stub_toolkit,
+                                                    monkeypatch):
+    monkeypatch.setitem(_kernels.UNITS, "toy", ("-DA", "-DB"))
+    monkeypatch.setenv("STUB_NVCC_FAIL", "1")
+    with pytest.raises(RuntimeError, match="nvcc failed for toy.cu"):
+        _kernels.build("toy")
+    assert os.listdir(stub_toolkit["cache"]) == []
+
+
+_STUB_CUOBJDUMP = """\
+#!/bin/sh
+echo "	code for sm_90a"
+echo "		Function : kernel_a"
+case "$2" in
+  *parent*) echo "        /*0000*/                   MOV R1, c[0x0][0x28] ;  /* 0x1 */";;
+  *) echo "        /*0000*/                   MOV R1, c[0x0][0x28] ; /* 0x1 */";;
+esac
+echo "		Function : kernel_b"
+echo "        /*0000*/                   EXIT ;"
+"""
+
+
+def test_build_compare_with_a_stub_toolkit(stub_toolkit, tmp_path):
+    """tools/build_compare.py over two trees (this checkout twice) with
+    the stub nvcc, cuobjdump and nvidia-smi: a fresh build per turn into
+    an empty cache (parent, change, change, parent), every library built,
+    the same functions and code in both trees."""
+    from gatk_hc_tpu_torch.tools import build_compare
+
+    bin_dir = stub_toolkit["home"] / "bin"
+    for name, text in (("cuobjdump", _STUB_CUOBJDUMP),
+                       ("nvidia-smi", "#!/bin/sh\necho 'stub card, 1 W'\n")):
+        tool = bin_dir / name
+        tool.write_text(text)
+        tool.chmod(tool.stat().st_mode | stat.S_IXUSR)
+    out = tmp_path / "lines.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        assert build_compare.main(["--tree", f"parent={REPO}", "--tree",
+                                   f"change={REPO}", "--out", str(out)]) == 0
+    assert printed.getvalue().splitlines()[0] == "stub card, 1 W"
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    builds = [r for r in rows if "turn" in r]
+    assert [r["tree"] for r in builds] == ["parent", "change", "change",
+                                           "parent"]
+    for r in builds:
+        assert set(r["libraries"]) == set(_kernels.KERNELS)
+        assert r["nvcc_runs"] == sum(_kernels.nvcc_processes(n)
+                                     for n in _kernels.KERNELS)
+    code = [r for r in rows if "library" in r]
+    assert [r["library"] for r in code] == sorted(_kernels.KERNELS)
+    assert all(r["identical"] and r["functions"] == {"parent": 2, "change": 2}
+               for r in code)
+    summary = rows[-1]
+    assert set(summary["summary"]) == {"parent", "change"}
+    assert all(summary["code_identical"].values())
+    # an anonymous namespace's name hashes the path it was compiled from
+    names = ["_ZN51_GLOBAL__N__3c5d62de_18_pairhmm_striped_cu_8155484f22"
+             "striped_forward_kernelILi8ELi14ELb0ELb1EEEvNS_4ArgsE",
+             "_ZN51_GLOBAL__N__9a0b1c2d_18_pairhmm_striped_cu_8b90415622"
+             "striped_forward_kernelILi8ELi14ELb0ELb1EEEvNS_4ArgsE"]
+    alike = {build_compare._ANON.sub("_GLOBAL__N_", n) for n in names}
+    assert alike == {"_ZN51_GLOBAL__N_22striped_forward_kernelILi8ELi14ELb0"
+                     "ELb1EEEvNS_4ArgsE"}
+
+
+def test_chip_smoke_fuzz_rows_over_processes(tmp_path, monkeypatch):
+    """chip_smoke.fuzz_rows: the fuzzer's seeds split over processes give
+    each seed's row, in the seeds' order, as run_seed in this process
+    does; a failing process raises."""
+    import chip_smoke
+    from gatk_hc_tpu_torch.tools import fuzz_differential as fz
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the plain versions' pools
+    seeds, arms = (1040, 1041, 1042), ("python", "native", "cuda")
+    small = {"length": 3000, "depth": 8}
+    rows = chip_smoke.fuzz_rows(seeds, str(tmp_path / "keep"), arms,
+                                workers=2, device="cpu", **small)
+    assert [row["seed"] for row in rows] == list(seeds)
+    assert all(row["ok"] for row in rows)
+    here = fz.run_seed(1041, str(tmp_path / "keep"), arms, device="cpu",
+                       **small)
+    for key in ("variants", "ok", "differ", "device"):
+        assert rows[1][key] == here[key], key
+    with pytest.raises(RuntimeError, match="fuzz worker exited"):
+        chip_smoke.fuzz_rows((1040,), str(tmp_path / "keep"), ("no_arm",),
+                             device="cpu", **small)
+
+
+def test_warm_cache_ppe_plain_takes_no_rows_per_lane():
+    """warm_cache computes the ppe plain version once per entry: its
+    result on the launcher's inputs is the same at every --ppe-rows."""
+    import torch
+
+    launcher = warm_cache._Launcher(torch.device("cpu"))
+    for entry in ("pair_minor", "nib"):
+        outs = [launcher.calls(warm_cache.Instance("ppe", nr, entry))[1]()
+                for nr in warm_cache.PPE_ROWS]
+        assert all(launcher.equal(out, outs[0]) for out in outs[1:])

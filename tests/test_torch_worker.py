@@ -81,8 +81,12 @@ class TestWedge:
         runner = wedged_runner(release)
         del runner._submit_batch  # the class body: dispatch succeeds...
         runner._sync_d2h = lambda batches: release.wait(60)  # ...the copy not
+        handle = runner.submit(jobs)
+        # the dispatch ends before drain starts its 0.3 s budget, so that a
+        # loaded host cannot make it look wedged: only the fetch can be
+        handle.result(60)
         with pytest.raises(DeviceWedgedError, match="device fetch"):
-            runner.drain([runner.submit(jobs)])
+            runner.drain([handle])
         assert runner._wedged == "fetch" and runner._fetch_pool.abandoned
         assert all(job.result is None for job in jobs)
 
