@@ -617,12 +617,11 @@ def region_group(rng, r_pad, c_pad):
 
 def pack_group(runner, path, u):
     """The runner's payload of group ``u`` in ``path``'s encoding."""
-    t0 = time.perf_counter()
     if path == "planes":
-        return runner._pack_planes(u, t0)
+        return runner._pack_planes(u)
     if path == "packed":
-        return runner._pack_bytes(u, t0)
-    return runner._pack_nib(u, *runner._nib_encode(u.read_u8, u.qual_u8), t0)
+        return runner._pack_bytes(u)
+    return runner._pack_nib(u, *runner._nib_encode(u.read_u8, u.qual_u8))
 
 
 def segment_pairs(u, start, n):
@@ -815,7 +814,7 @@ def phase_striped_front():
     t_phase = time.perf_counter()
     for (r_pad, c_pad), h, kind in cases:
         u = region_group(rng, r_pad, c_pad)
-        payload = runner._pack_bytes(u, time.perf_counter())
+        payload = runner._pack_bytes(u)
         buf = join_payloads([payload], runner._pinned)
         segs = segments_of([payload], buf.ship(runner.device))
         if kind == "chunk":

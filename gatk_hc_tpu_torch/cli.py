@@ -328,27 +328,28 @@ def _run(args) -> int:
         elif cfg.pairhmm_engine in ("cuda", "diag", "native", "shardmap"):
             # all run the cross-region batched pipeline (same grouping +
             # columnar data path); "python" stays on the simple per-region
-            # oracle pipeline
-            if cfg.pairhmm_engine == "cuda":
-                from .ops.runner import BackgroundRunner
+            # oracle pipeline.  The profile opens first, so that it holds
+            # the runner's build thread too
+            with maybe_profile():
+                if cfg.pairhmm_engine == "cuda":
+                    from .ops.runner import BackgroundRunner
 
-                # the torch import, kernel build + load, CUDA context,
-                # device tables and the kernels' warm-up launches run on a
-                # background thread, overlapped with parse/assembly
-                runner = BackgroundRunner(cfg, device=args.device)
-            try:
-                with maybe_profile():
+                    # the torch import, kernel build + load, CUDA context,
+                    # device tables and the kernels' warm-up launches run on
+                    # a background thread, overlapped with parse/assembly
+                    runner = BackgroundRunner(cfg, device=args.device)
+                try:
                     results = call_batched(
                         args.input, args.reference, args.output, cfg,
                         region_filter=region_filter, logger=logger,
                         timers=timers, counters=counters, manifest=manifest,
                         runner=runner, device=args.device,
                     )
-            finally:
-                # on ANY exit (errors included): no warm-up launch that has
-                # not started keeps the process alive
-                if runner is not None:
-                    runner.stop_prewarm()
+                finally:
+                    # on ANY exit (errors included): no warm-up launch that
+                    # has not started keeps the process alive
+                    if runner is not None:
+                        runner.stop_prewarm()
         else:
             results = call(
                 args.input, args.reference, args.output, cfg,
@@ -413,9 +414,10 @@ def _run(args) -> int:
             if buckets:
                 stats["bucket_counts"] = {
                     f"{r}x{c}": n for (r, c), n in sorted(buckets.items())}
-            # stage medians (ms): the caller's time in submit, host pack,
-            # H2D, gather (striped only), kernel, D2H (per submit) and host
-            # finalize, with their sums
+            # stage medians (ms): the caller's time in submit, host pack
+            # and its parts, launch enqueue, H2D, kernel, D2H (per submit)
+            # and host finalize, with their sums (ops/torch_runner.py::
+            # STAGES)
             stats["device_stages_ms"] = inner.stage_medians()
             if inner.device.type == "cuda":
                 import torch

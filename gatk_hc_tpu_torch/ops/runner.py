@@ -38,6 +38,7 @@ import numpy as np
 
 from ..config import HCConfig
 from ..utils.logging import process_age_s as _process_age_s
+from ..utils.logging import span
 
 ReadArray = Tuple[np.ndarray, np.ndarray]  # (bases u8, quals u8)
 
@@ -341,32 +342,32 @@ class BackgroundRunner:
                 # a replacement set on this module (as the tests do) wins
                 runner_cls = globals().get("TorchPairHMMRunner",
                                            torch_runner.TorchPairHMMRunner)
-                t1 = time.perf_counter()
-                runner = runner_cls(cfg, device=device, devices=devices)
+                with span("build.runner") as ctor:
+                    runner = runner_cls(cfg, device=device, devices=devices)
                 runner.init_profile.update(
                     build_start_at_age_s=round(age0, 3),
                     torch_preloaded=preloaded,
                     torch_import_s=round(import_s, 3),
-                    runner_ctor_s=round(time.perf_counter() - t1, 3))
+                    runner_ctor_s=round(ctor.seconds, 3))
                 if runner.device.type == "cuda":
                     from . import _kernels
 
-                    t2 = time.perf_counter()
-                    names = _kernels.libraries_for(cfg)
-                    _kernels.build_all(names)  # one nvcc each, together
-                    for name in names:
-                        _kernels.load(name)
+                    with span("build.kernels") as kernels:
+                        names = _kernels.libraries_for(cfg)
+                        _kernels.build_all(names)  # one nvcc each, together
+                        for name in names:
+                            _kernels.load(name)
                     runner.init_profile["kernel_build_load_s"] = round(
-                        time.perf_counter() - t2, 3)
+                        kernels.seconds, 3)
                     runner.init_profile["kernel_cache"] = _kernels.cache_report()
                 self._runner = runner
                 if self._stop_requested:
                     runner.stop_prewarm()
                 else:
-                    t3 = time.perf_counter()
-                    runner.prewarm()
+                    with span("build.prewarm") as kickoff:
+                        runner.prewarm()
                     runner.init_profile["prewarm_kickoff_s"] = round(
-                        time.perf_counter() - t3, 3)
+                        kickoff.seconds, 3)
             except BaseException as exc:  # surfaced on first use
                 self._exc = exc
 

@@ -62,6 +62,7 @@ import torch
 
 from ..config import HCConfig
 from ..utils.logging import process_age_s as _process_age_s
+from ..utils.logging import span
 from ..utils.quality import INITIAL_CONSTANT_F32
 from .runner import (
     DeviceWedgedError,
@@ -75,10 +76,16 @@ from .runner import (
 )
 
 # "submit" is the caller's time inside submit(), per submit; "d2h" is per
-# submit and slot; the others are per launch unit (a group, or k fused groups),
-# "pack" per group (no path has a stage between H2D and kernel: each
-# kernel reads the shipped rows itself)
-STAGES = ("submit", "pack", "h2d", "kernel", "d2h", "finalize")
+# submit and slot; "pack" and its parts per group ("unique_rows" and
+# "encode" are host-clock spans inside it, "pack_cpu" the dispatch thread's
+# CPU time over it); the others per launch unit (a group, or k fused
+# groups).  "launch" is the host's time enqueuing the unit's H2D copy and
+# kernel launches; "h2d" and "kernel" are stream time between CUDA events,
+# so when the stream starves they hold the host's enqueue gaps too (the
+# card's own time is the profiler's).  No path has a stage between H2D and
+# kernel: each kernel reads the shipped rows itself.
+STAGES = ("submit", "pack", "unique_rows", "encode", "pack_cpu", "launch",
+          "h2d", "kernel", "d2h", "finalize")
 
 
 class _Stamp:
@@ -180,7 +187,8 @@ class _Payload:
     buf: _HostBuffer
     spans: List[Tuple[int, int, int, int]]
     total: int
-    pack_ms: float
+    # the group's per-group stages (STAGES) in ms, set once it is packed
+    stage_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -190,7 +198,8 @@ class _Entry:
 
     spans: List[Tuple[int, int, int, int]]  # (job, start in entry, nr, nh)
     total: int
-    pack_ms: List[float]  # per group
+    group_ms: List[Dict[str, float]]  # per group: its per-group stages
+    launch_ms: float
     h2d: Tuple[_Stamp, _Stamp]
     chunks: List[Tuple[_Stamp, _Stamp]]  # per launch: start, end
     outs: Optional[List[torch.Tensor]]  # the launches' results (until D2H)
@@ -401,26 +410,28 @@ class TorchPairHMMRunner:
         if first:
             self.init_profile["first_submit_at_age_s"] = round(
                 _process_age_s(), 3)
-            t_first = time.perf_counter()
-        groups = self._plan_groups(jobs)
-        # fuse_auto: fusion engages on the controller's measured DEEP
-        # degradation (DispatchPathController.deeply_degraded), not
-        # statically (HCConfig.fuse_auto)
-        fuse_on = self.cfg.fuse_groups > 1 and (
-            not self.cfg.fuse_auto or self._path_ctl.deeply_degraded()
-        )
-        sink: Optional[List[_Payload]] = [] if fuse_on else None
-        entries: List[_Entry] = []
-        for group in groups:
-            entry = self._submit_group(jobs, group, sink)
-            if entry is not None:
-                entries.append(entry)
-        if sink:
-            entries.extend(self._dispatch_fused(sink))
-        batch = self._read_back(jobs, entries)
+        with span("runner.batch") as whole:
+            with span("runner.plan"):
+                groups = self._plan_groups(jobs)
+            # fuse_auto: fusion engages on the controller's measured DEEP
+            # degradation (DispatchPathController.deeply_degraded), not
+            # statically (HCConfig.fuse_auto)
+            fuse_on = self.cfg.fuse_groups > 1 and (
+                not self.cfg.fuse_auto or self._path_ctl.deeply_degraded()
+            )
+            sink: Optional[List[_Payload]] = [] if fuse_on else None
+            entries: List[_Entry] = []
+            for group in groups:
+                entry = self._submit_group(jobs, group, sink)
+                if entry is not None:
+                    entries.append(entry)
+            if sink:
+                entries.extend(self._dispatch_fused(sink))
+            with span("runner.read_back"):
+                batch = self._read_back(jobs, entries)
         if first:
             self.init_profile["first_submit_batch_s"] = round(
-                time.perf_counter() - t_first, 3)
+                whole.seconds, 3)
         return batch
 
     def _read_back(self, jobs, entries: List[_Entry]) -> _Batch:
@@ -471,30 +482,32 @@ class TorchPairHMMRunner:
         submit and drain).  An error of the worker raises as itself."""
         self._raise_if_wedged()
         timeout = self.cfg.device_timeout_s or None
-        resolved = [
-            self._wait(b, "dispatch", timeout)
-            if isinstance(b, _WorkerFuture) else b
-            for b in batches
-        ]
+        with span("runner.wait"):
+            resolved = [
+                self._wait(b, "dispatch", timeout)
+                if isinstance(b, _WorkerFuture) else b
+                for b in batches
+            ]
         if not resolved:
             return
         first_fetch = "first_drain_fetch_s" not in self.init_profile
-        t_fetch = time.perf_counter()
-        self._fetch(resolved, timeout)
+        with span("runner.fetch") as fetch:
+            self._fetch(resolved, timeout)
         if first_fetch:
-            self.init_profile["first_drain_fetch_s"] = round(
-                time.perf_counter() - t_fetch, 3)
+            self.init_profile["first_drain_fetch_s"] = round(fetch.seconds, 3)
         for batch in resolved:
             for d0, d1 in batch.d2h:
                 self.stage_ms["d2h"].append(d0.ms_until(d1))
             probs = batch.host_out.numpy()
             for e in batch.entries:
-                t0 = time.perf_counter()
-                self._finalize_group(
-                    batch.jobs, probs[e.start : e.start + e.total], e.spans
-                )
-                self.stage_ms["finalize"].append((time.perf_counter() - t0) * 1e3)
-                self.stage_ms["pack"].extend(e.pack_ms)
+                with span("runner.finalize", self.stage_ms["finalize"]):
+                    self._finalize_group(
+                        batch.jobs, probs[e.start : e.start + e.total],
+                        e.spans)
+                for times in e.group_ms:
+                    for stage, ms in times.items():
+                        self.stage_ms[stage].append(ms)
+                self.stage_ms["launch"].append(e.launch_ms)
                 self.stage_ms["h2d"].append(e.h2d[0].ms_until(e.h2d[1]))
                 self.stage_ms["kernel"].append(
                     sum(a.ms_until(b) for a, b in e.chunks))
@@ -753,10 +766,6 @@ class TorchPairHMMRunner:
         """Pack one group in the chosen encoding and launch it, or, when
         ``sink`` is given (fusion on) and the group is one chunk, defer its
         payload there for _dispatch_fused."""
-        t_pack = time.perf_counter()
-        r_pad, c_pad = self._pads_for_group(jobs, group)
-        self.bucket_counts[r_pad, c_pad] = (
-            self.bucket_counts.get((r_pad, c_pad), 0) + 1)
         if self.striped:
             path, calibrate = "striped", False
         else:
@@ -764,21 +773,22 @@ class TorchPairHMMRunner:
         if calibrate:
             # time this group alone: pack to kernel end on the stream
             self._sync()
-            t_pack = time.perf_counter()
-        u = self._unique_rows(jobs, group, r_pad, c_pad)
-        if path == "striped":
-            return self._launch_chunks(self._pack_bytes(u, t_pack))
-        n_chunks = -(-u.total // self.pair_budget)
-        if path == "packed":
-            nib = (self._nib_encode(u.read_u8, u.qual_u8)
-                   if self.cfg.packed_nib and n_chunks == 1 else None)
-            # nib when the group's alphabets fit; otherwise (and for a
-            # group of several chunks) raw packed, counted as "packed"
-            payload = (self._pack_nib(u, *nib, t_pack) if nib is not None
-                       else self._pack_bytes(u, t_pack))
-        else:
-            payload = self._pack_planes(u, t_pack)
-        if n_chunks > 1:
+        with span("runner.pack") as pack:
+            cpu0 = time.thread_time_ns()
+            r_pad, c_pad = self._pads_for_group(jobs, group)
+            self.bucket_counts[r_pad, c_pad] = (
+                self.bucket_counts.get((r_pad, c_pad), 0) + 1)
+            with span("runner.pack.unique_rows") as unique:
+                u = self._unique_rows(jobs, group, r_pad, c_pad)
+            n_chunks = -(-u.total // self.pair_budget)
+            with span("runner.pack.encode") as encode:
+                payload = self._encode(u, path, n_chunks)
+            cpu_ms = (time.thread_time_ns() - cpu0) / 1e6
+        payload.stage_ms = {"pack": pack.seconds * 1e3,
+                            "unique_rows": unique.seconds * 1e3,
+                            "encode": encode.seconds * 1e3,
+                            "pack_cpu": cpu_ms}
+        if self.striped or n_chunks > 1:
             entry = self._launch_chunks(payload)
         elif sink is not None and not calibrate:
             sink.append(payload)
@@ -788,8 +798,26 @@ class TorchPairHMMRunner:
         if calibrate:
             self._sync()
             self._path_ctl.record(
-                path, (time.perf_counter() - t_pack) / max(u.total, 1))
+                path, (time.perf_counter() - pack.start) / max(u.total, 1))
         return entry
+
+    def _encode(self, u: _Unique, path: str, n_chunks: int) -> _Payload:
+        """The group's unique rows in ``path``'s encoding, in one host
+        buffer; a child span names the encoding that ran (nib's dictionary
+        pass, ``_nib_encode``, is its parent's own time)."""
+        if path == "packed":
+            nib = (self._nib_encode(u.read_u8, u.qual_u8)
+                   if self.cfg.packed_nib and n_chunks == 1 else None)
+            # nib when the group's alphabets fit; otherwise (and for a
+            # group of several chunks) raw packed, counted as "packed"
+            if nib is not None:
+                with span("runner.pack.encode.nib"):
+                    return self._pack_nib(u, *nib)
+        elif path == "planes":
+            with span("runner.pack.encode.planes"):
+                return self._pack_planes(u)
+        with span("runner.pack.encode.bytes"):
+            return self._pack_bytes(u)
 
     def _unique_rows(self, jobs, group, r_pad, c_pad) -> _Unique:
         """The group's unique reads and haps as 0-padded byte rows, their
@@ -878,7 +906,7 @@ class TorchPairHMMRunner:
         )
         return np.repeat(starts, lens) + within
 
-    def _pack_planes(self, u: _Unique, t_pack: float) -> _Payload:
+    def _pack_planes(self, u: _Unique) -> _Payload:
         """[planes (i32, _build_planes) | pairs (2, total) i32]."""
         nr_pad, nh_pad, r_pad, c_pad = u.dims
         n_planes = nr_pad + 2 * nh_pad + 3 * nr_pad * r_pad + nh_pad * c_pad
@@ -888,10 +916,9 @@ class TorchPairHMMRunner:
                            u.hap_lens, u.hap_init_y, *u.dims,
                            out=buf.array(0))
         u.pairs_into(buf.array(1))
-        return _Payload("planes", u.dims, buf, u.spans, u.total,
-                        (time.perf_counter() - t_pack) * 1e3)
+        return _Payload("planes", u.dims, buf, u.spans, u.total)
 
-    def _pack_bytes(self, u: _Unique, t_pack: float) -> _Payload:
+    def _pack_bytes(self, u: _Unique) -> _Payload:
         """Raw packed (and the striped path's shipping): [reads | quals |
         haps] u8, [rlens | hlens | init_y bits] i32, pairs (2, total) i32."""
         nr_pad, nh_pad, r_pad, c_pad = u.dims
@@ -905,11 +932,10 @@ class TorchPairHMMRunner:
         u8[2 * nrr :] = u.hap_u8
         u.lens_into(buf.array(1))
         u.pairs_into(buf.array(2))
-        return _Payload("packed", u.dims, buf, u.spans, u.total,
-                        (time.perf_counter() - t_pack) * 1e3)
+        return _Payload("packed", u.dims, buf, u.spans, u.total)
 
-    def _pack_nib(self, u: _Unique, nib_u8: np.ndarray, minitab: np.ndarray,
-                  t_pack: float) -> _Payload:
+    def _pack_nib(self, u: _Unique, nib_u8: np.ndarray,
+                  minitab: np.ndarray) -> _Payload:
         """Nib: [nib reads | haps] u8, [rlens | hlens | init_y bits] i32,
         the 72-entry mini-table, the span table [read_base, hap_base, nr,
         nh] padded to a power of two of at least 8 rows (zero rows), and
@@ -935,8 +961,7 @@ class TorchPairHMMRunner:
         for k, ((_g, _s, nr, nh), (rb, hb)) in enumerate(zip(u.spans, u.bases)):
             table[k] = (rb, hb, nr, nh)
         buf.array(4)[:] = nib_starts(table)
-        return _Payload("packednib", u.dims, buf, u.spans, u.total,
-                        (time.perf_counter() - t_pack) * 1e3)
+        return _Payload("packednib", u.dims, buf, u.spans, u.total)
 
     def _nib_encode(self, read_u8, qual_u8):
         """Nibble-dictionary encoding of a group's read planes, or None
@@ -977,19 +1002,24 @@ class TorchPairHMMRunner:
         label = path if k == 1 else _FUSE_LABEL[path] + str(k)
         self.dispatch_counts[label] = self.dispatch_counts.get(label, 0) + 1
         if k == 1:
-            buf, pack_ms = payloads[0].buf, [payloads[0].pack_ms]
+            buf = payloads[0].buf
         else:
-            t0 = time.perf_counter()
+            # the join is packing: each group's pack and pack_cpu take an
+            # equal share of it
+            t0, cpu0 = time.perf_counter(), time.thread_time_ns()
             buf = join_payloads(payloads, self._pinned)
             share = (time.perf_counter() - t0) * 1e3 / k
-            pack_ms = [p.pack_ms + share for p in payloads]
+            cpu_share = (time.thread_time_ns() - cpu0) / 1e6 / k
+            for p in payloads:
+                p.stage_ms["pack"] += share
+                p.stage_ms["pack_cpu"] += cpu_share
         spans, off = [], 0
         for p in payloads:
             spans.extend((g, off + s, nr, nh) for g, s, nr, nh in p.spans)
             off += p.total
         slot = self._take_slot()
         stream = slot.stream
-        with slot.active():
+        with span("runner.launch") as launch, slot.active():
             h0 = _Stamp(stream)
             views = buf.ship(slot.device)
             h1 = _Stamp(stream)
@@ -997,7 +1027,8 @@ class TorchPairHMMRunner:
                 _FRONT[path], segments_of(payloads, views), slot.ppe_tab,
                 self.trans, self.cfg.ppe_rows)
             k1 = _Stamp(stream)
-        return _Entry(spans, off, pack_ms, (h0, h1), [(h1, k1)], [res], buf,
+        return _Entry(spans, off, [p.stage_ms for p in payloads],
+                      launch.seconds * 1e3, (h0, h1), [(h1, k1)], [res], buf,
                       slot=slot.index)
 
     def _launch_chunks(self, p: _Payload) -> _Entry:
@@ -1015,7 +1046,7 @@ class TorchPairHMMRunner:
         label = ("striped" if self.striped else
                  "planes" if p.path == "planes" else "packed-split")
         outs, chunks = [], []
-        with slot.active():
+        with span("runner.launch") as launch, slot.active():
             h0 = _Stamp(stream)
             views = tuple(p.buf.ship(slot.device))
             h1 = _Stamp(stream)
@@ -1032,8 +1063,8 @@ class TorchPairHMMRunner:
                 chunks.append((k0, _Stamp(stream)))
                 self.dispatch_counts[label] = (
                     self.dispatch_counts.get(label, 0) + 1)
-        return _Entry(p.spans, p.total, [p.pack_ms], (h0, h1), chunks, outs,
-                      p.buf, slot=slot.index)
+        return _Entry(p.spans, p.total, [p.stage_ms], launch.seconds * 1e3,
+                      (h0, h1), chunks, outs, p.buf, slot=slot.index)
 
     def _dispatch_fused(self, payloads: List[_Payload]) -> List[_Entry]:
         """Launch deferred single-chunk groups, fusing up to

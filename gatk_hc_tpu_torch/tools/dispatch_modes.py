@@ -49,7 +49,8 @@ MODES = {
     "striped": ["--pallas-algo", "striped"],
 }
 # the runner's host stages: every other stage a tree reports is the card's
-HOST_STAGES = ("submit", "pack", "finalize")
+HOST_STAGES = ("submit", "pack", "unique_rows", "encode", "pack_cpu",
+               "launch", "finalize")
 
 
 def cli(tree, argv, timeout=1800):

@@ -217,14 +217,14 @@ class _Launcher:
     def segments(self, path: str):
         from ..ops.torch_runner import join_payloads, segments_of
 
-        runner, u, t0 = self.runner, self.group, time.perf_counter()
+        runner, u = self.runner, self.group
         if path == "planes":
-            payload = runner._pack_planes(u, t0)
+            payload = runner._pack_planes(u)
         elif path == "packed":
-            payload = runner._pack_bytes(u, t0)
+            payload = runner._pack_bytes(u)
         else:
             payload = runner._pack_nib(
-                u, *runner._nib_encode(u.read_u8, u.qual_u8), t0)
+                u, *runner._nib_encode(u.read_u8, u.qual_u8))
         buf = join_payloads([payload], runner._pinned)
         return segments_of([payload], buf.ship(self.device))
 

@@ -10,9 +10,12 @@ profiling hooks (PairWiseSW.h PERF_DEBUG).  Here:
   downsample+clip, assemble, pairhmm, genotype, io);
 * ``RunCounters`` tracks regions/reads/pairs/cell-updates/variants and
   renders a one-line JSON summary (the CLI --stats source of truth);
-* ``trace_annotation`` / ``maybe_profile`` wrap torch.profiler when
-  profiling is enabled (GATK_HC_TPU_TORCH_PROFILE_DIR env): the whole run is
-  traced on the host and the card and written as a Chrome trace.
+* ``span`` times one step of the run on the host clock and, while a
+  torch.profiler profile is recording, marks it in the trace as
+  ``hc.<name>``;
+* ``maybe_profile`` traces the whole run on the host and the card when
+  GATK_HC_TPU_TORCH_PROFILE_DIR is set, every thread of the process
+  included, and writes it as a Chrome trace.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import json
 import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -149,19 +152,58 @@ NULL_LOGGER = HCLogger(verbosity=0)
 PROFILE_DIR = os.environ.get("GATK_HC_TPU_TORCH_PROFILE_DIR")
 
 
-@contextlib.contextmanager
-def trace_annotation(name: str):
-    """torch.profiler range (recorded only while a profile is active)."""
-    import torch
+SPAN_PREFIX = "hc."
 
-    with torch.profiler.record_function(name):
-        yield
+
+class span:
+    """One step of the run, timed on the host clock (``time.perf_counter``):
+    ``with span("runner.pack") as s: ...``, then ``s.seconds``.
+
+    ``sink``, a list, gets the step's milliseconds appended (a runner stage
+    list).  While a torch.profiler profile records, the step is also a
+    ``record_function`` range named ``hc.<name>`` in its trace; otherwise no
+    range is entered, so a span costs two clock reads and a flag read.
+    Spans nested on one thread are the parent / child link; names hold no
+    ids, so a trace aggregates them by name.  The runner's dispatch worker
+    is one FIFO thread, so its k-th ``hc.runner.batch`` span is the k-th
+    submit, and the spans inside it belong to that submit."""
+
+    __slots__ = ("name", "sink", "start", "seconds", "_range")
+
+    def __init__(self, name: str, sink: Optional[List[float]] = None):
+        self.name = name
+        self.sink = sink
+        self._range = None
+
+    def __enter__(self) -> "span":
+        # the process-wide flag a profile sets, read without importing
+        # torch (torch's per-thread check reads False on the threads that a
+        # profile of every thread records)
+        if getattr(sys.modules.get("torch.autograd.profiler"),
+                   "_is_profiler_enabled", False):
+            import torch
+
+            self._range = torch.profiler.record_function(SPAN_PREFIX
+                                                         + self.name)
+            self._range.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.seconds = time.perf_counter() - self.start
+        if self.sink is not None:
+            self.sink.append(self.seconds * 1e3)
+        if self._range is not None:
+            self._range.__exit__(*exc)
 
 
 @contextlib.contextmanager
 def maybe_profile():
     """Whole-run host + CUDA profile when GATK_HC_TPU_TORCH_PROFILE_DIR is set;
-    the trace lands in that directory as trace.json (chrome://tracing)."""
+    the trace lands in that directory as trace.json (chrome://tracing).  It
+    records every thread of the process (the runner's "hc-build",
+    "hc-dispatch" and "hc-fetch" threads with their ``span``s), not only
+    the one that opens it."""
     if not PROFILE_DIR:
         yield
         return
@@ -170,7 +212,10 @@ def maybe_profile():
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=every_thread) as prof:
         yield
     os.makedirs(PROFILE_DIR, exist_ok=True)
     prof.export_chrome_trace(os.path.join(PROFILE_DIR, "trace.json"))

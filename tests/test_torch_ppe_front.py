@@ -16,7 +16,6 @@ reference's Pallas dispatch functions in interpret mode, fused forms
 included."""
 
 import dataclasses
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,14 +80,13 @@ def small_runner():
 def pack(runner, path, jobs, r_pad, c_pad):
     """One group of ``jobs`` packed in ``path``'s encoding."""
     u = runner._unique_rows(jobs, list(range(len(jobs))), r_pad, c_pad)
-    t0 = time.perf_counter()
     if path == "planes":
-        return runner._pack_planes(u, t0)
+        return runner._pack_planes(u)
     if path == "packed":
-        return runner._pack_bytes(u, t0)
+        return runner._pack_bytes(u)
     nib = runner._nib_encode(u.read_u8, u.qual_u8)
     assert nib is not None
-    return runner._pack_nib(u, *nib, t0)
+    return runner._pack_nib(u, *nib)
 
 
 def ascii_pairs(jobs):
