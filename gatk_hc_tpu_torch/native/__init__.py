@@ -18,17 +18,22 @@ import numpy as np
 
 _LIB_PATH = os.path.join(os.path.dirname(__file__), "libhcnative.so")
 _lib: Optional[ctypes.CDLL] = None
+_load_lock = threading.Lock()  # one build and load when threads race
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from .build import build
+        with _load_lock:
+            if _lib is None:
+                from .build import build
 
-        build()  # a no-op unless the library is missing or older than its source
-        _lib = ctypes.CDLL(_LIB_PATH)
-        _configure(_lib)
-        _push_tables(_lib)
+                build()  # a no-op unless the library is missing or older
+                # than its source
+                lib = ctypes.CDLL(_LIB_PATH)
+                _configure(lib)
+                _push_tables(lib)
+                _lib = lib
     return _lib
 
 
@@ -185,6 +190,22 @@ def _configure(lib: ctypes.CDLL) -> None:
         + [ctypes.c_int32]  # worker threads
         + list(lib.hc_sam_parse_ranges.argtypes[7:])
     )
+    vp = ctypes.c_void_p
+    lib.hc_pack_dict.restype = ctypes.c_int32
+    lib.hc_pack_dict.argtypes = [
+        vp, ctypes.c_int32, vp,  # jobs, count, read lengths
+        vp, vp,  # out dictionaries, out byte -> index tables
+    ]
+    lib.hc_pack_rows.restype = ctypes.c_int32
+    lib.hc_pack_rows.argtypes = [
+        vp, ctypes.c_int32, vp,  # jobs, count, read lengths
+        ctypes.c_int32, ctypes.c_int32,  # nr_pad, r_pad
+        vp, vp,  # haps end to end, their lengths
+        ctypes.c_int32, ctypes.c_int32,  # nh_pad, c_pad
+        ctypes.c_int32, vp,  # encoding, its table
+        vp, vp, vp, ctypes.c_int64,  # out reads, haps, pairs (or None), total
+    ]
+
     lib.hc_prepare_window.restype = ctypes.c_int32
     lib.hc_prepare_window.argtypes = [
         i32p, i32p, i32p, u8p,  # pos, flag, mapq, rnext_eq
@@ -250,6 +271,84 @@ def pairhmm_raw_native(
         cptr(out, ctypes.c_float if dtype == np.float32 else ctypes.c_double),
     )
     return out
+
+
+# hc_pack_rows' encodings
+PACK_ENCODINGS = {"bytes": 0, "nib": 1, "planes": 2}
+
+
+def _check_pack_reads(jobs: np.ndarray, read_lens: np.ndarray) -> None:
+    """The job table and read lengths hc_pack_* walk: (n_jobs, 4) int64
+    rows whose read counts sum to the lengths given (int64)."""
+    if not (jobs.dtype == np.int64 and jobs.ndim == 2 and jobs.shape[1] == 4
+            and jobs.flags.c_contiguous and read_lens.dtype == np.int64
+            and read_lens.flags.c_contiguous
+            and read_lens.size == int(jobs[:, 2].sum())):
+        raise ValueError("hc_pack: jobs must be (n, 4) int64 rows whose read "
+                         "counts sum to the int64 read lengths given")
+
+
+def _check_out(a: np.ndarray, dtype, size: int, name: str) -> None:
+    if a.dtype != dtype or a.size != size or not a.flags.c_contiguous:
+        raise ValueError(f"hc_pack: {name} must be {size} contiguous "
+                         f"{np.dtype(dtype).name}")
+
+
+def pack_dict(jobs: np.ndarray, read_lens: np.ndarray, dicts: np.ndarray,
+              luts: np.ndarray) -> bool:
+    """The nib dictionaries of a group's reads into ``dicts`` ((42,) i32:
+    n_seq, n_qual, 8 seq bytes, 32 qual bytes) and ``luts`` ((512,) u8:
+    byte -> index, seq then qual) -> False, writing nothing, when the
+    alphabets overflow (seq > 8 or qual > 32 distinct bytes, byte 0
+    included).  ``jobs``: (n_jobs, 4) int64 rows [bases address, quals
+    address, reads, haps]; ``read_lens``: every read's length (int64)."""
+    _check_pack_reads(jobs, read_lens)
+    _check_out(dicts, np.int32, 42, "dicts")
+    _check_out(luts, np.uint8, 512, "luts")
+    return _load().hc_pack_dict(
+        jobs.ctypes.data, len(jobs), read_lens.ctypes.data,
+        dicts.ctypes.data, luts.ctypes.data) == 0
+
+
+def pack_rows(jobs: np.ndarray, read_lens: np.ndarray, nr_pad: int,
+              r_pad: int, hap_flat: np.ndarray, hap_lens: np.ndarray,
+              nh_pad: int, c_pad: int, encoding: str,
+              tab: Optional[np.ndarray], out_reads: np.ndarray,
+              out_haps: np.ndarray, pairs: Optional[np.ndarray]) -> None:
+    """One pass (GIL released) writes a group's padded read and hap rows
+    in ``encoding`` (PACK_ENCODINGS; hc_pack_rows says what each writes
+    and what ``tab`` holds) into ``out_reads`` and ``out_haps``, and, when
+    given, its (2, total) pair indices into ``pairs``.  The pure-numpy
+    counterpart is ops/torch_runner.py's ``_unique_rows`` and
+    ``_pack_*``."""
+    _check_pack_reads(jobs, read_lens)
+    dtype, width, tab_want = {"bytes": (np.uint8, 2, None),
+                              "nib": (np.uint8, 1, (np.uint8, 512)),
+                              "planes": (np.int32, 3, (np.int32, 768))}[
+                                  encoding]
+    _check_out(out_reads, dtype, width * nr_pad * r_pad, "out_reads")
+    _check_out(out_haps, dtype, nh_pad * c_pad, "out_haps")
+    if tab_want is not None:
+        _check_out(tab, *tab_want, "tab")
+    if not (hap_lens.dtype == np.int64 and hap_lens.flags.c_contiguous
+            and hap_flat.dtype == np.uint8 and hap_flat.flags.c_contiguous
+            and hap_lens.size == int(jobs[:, 3].sum())
+            and hap_flat.size == int(hap_lens.sum())):
+        raise ValueError("hc_pack_rows: the haps must be u8 end to end, "
+                         "their int64 lengths one a hap of the jobs")
+    total = int((jobs[:, 2] * jobs[:, 3]).sum())
+    if pairs is not None:
+        _check_out(pairs, np.int32, 2 * total, "pairs")
+    rc = _load().hc_pack_rows(
+        jobs.ctypes.data, len(jobs), read_lens.ctypes.data, nr_pad, r_pad,
+        hap_flat.ctypes.data, hap_lens.ctypes.data, nh_pad, c_pad,
+        PACK_ENCODINGS[encoding],
+        None if tab_want is None else tab.ctypes.data,
+        out_reads.ctypes.data, out_haps.ctypes.data,
+        None if pairs is None else pairs.ctypes.data, total)
+    if rc != 0:
+        raise ValueError("hc_pack_rows: a read is longer than r_pad, or the "
+                         "rows do not fit the padded shape")
 
 
 PROF_PHASES = (

@@ -2531,3 +2531,204 @@ void hc_prof_read(int64_t* out, int32_t reset) {
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The dispatch worker's pack (ops/torch_runner.py): one pass writes a
+// group's unique read and haplotype rows straight into the host buffer it
+// ships, in the group's encoding, with the same bytes as the runner's numpy
+// pack.  A job is four int64s: the addresses of its read bases and of its
+// qualities (its reads end to end, in order) and its read and haplotype
+// counts; read_lens holds every read's length, jobs in group order.
+
+namespace {
+
+// row(index, bases, quals, length) for each read of the group, in order.
+template <class Row>
+void pack_for_each_read(const int64_t* jobs, int32_t n_jobs,
+                        const int64_t* read_lens, Row&& row) {
+  int64_t k = 0;
+  for (int32_t j = 0; j < n_jobs; ++j) {
+    const uint8_t* s = reinterpret_cast<const uint8_t*>(jobs[4 * j]);
+    const uint8_t* q = reinterpret_cast<const uint8_t*>(jobs[4 * j + 1]);
+    for (int64_t r = 0; r < jobs[4 * j + 2]; ++r, ++k) {
+      const int64_t n = read_lens[k];
+      row(k, s, q, n);
+      s += n;
+      q += n;
+    }
+  }
+}
+
+// One table lookup per byte of a row, the row's tail filled with what
+// byte 0 looks up to.
+template <class T>
+inline void pack_lookup_row(T* out, const T* tab, const uint8_t* src,
+                            int64_t n, int64_t width) {
+  for (int64_t i = 0; i < n; ++i) out[i] = tab[src[i]];
+  std::fill(out + n, out + width, tab[0]);
+}
+
+inline void pack_copy_row(uint8_t* out, const uint8_t* src, int64_t n,
+                          int64_t width) {
+  std::memcpy(out, src, static_cast<size_t>(n));
+  std::memset(out + n, 0, static_cast<size_t>(width - n));
+}
+
+}  // namespace
+
+extern "C" {
+
+// The nib dictionaries of a group: every distinct read base and quality
+// byte, byte 0 (the padding) forced in at index 0, ascending.  dict gets
+// [n_seq, n_qual, seq bytes (8), qual bytes (32)] and luts the byte ->
+// index tables, seq then qual (2 x 256).  Returns 1 when there are more
+// than 8 seq or 32 qual bytes (the group ships raw bytes), writing
+// nothing; else 0.
+int32_t hc_pack_dict(const int64_t* jobs, int32_t n_jobs,
+                     const int64_t* read_lens, int32_t* dict,
+                     uint8_t* luts) {
+  uint8_t seen_s[256] = {0}, seen_q[256] = {0};
+  seen_s[0] = seen_q[0] = 1;
+  pack_for_each_read(jobs, n_jobs, read_lens,
+                     [&](int64_t, const uint8_t* s, const uint8_t* q,
+                         int64_t n) {
+                       for (int64_t i = 0; i < n; ++i) seen_s[s[i]] = 1;
+                       for (int64_t i = 0; i < n; ++i) seen_q[q[i]] = 1;
+                     });
+  int32_t n_seq = 0, n_qual = 0;
+  for (int b = 0; b < 256; ++b) {
+    n_seq += seen_s[b];
+    n_qual += seen_q[b];
+  }
+  if (n_seq > 8 || n_qual > 32) return 1;
+  std::memset(luts, 0, 512);
+  std::memset(dict, 0, sizeof(int32_t) * 42);
+  dict[0] = n_seq;
+  dict[1] = n_qual;
+  int32_t is = 0, iq = 0;
+  for (int b = 0; b < 256; ++b) {
+    if (seen_s[b]) {
+      luts[b] = static_cast<uint8_t>(is);
+      dict[2 + is++] = b;
+    }
+    if (seen_q[b]) {
+      luts[256 + b] = static_cast<uint8_t>(iq);
+      dict[10 + iq++] = b;
+    }
+  }
+  return 0;
+}
+
+// A group's rows in one encoding, each padded to its width with what
+// byte 0 encodes to, rows past the group's padded the same:
+//   encoding 0, raw bytes: u8 bases then u8 quals (nr_pad x r_pad each)
+//     at out_reads, u8 haps at out_haps;
+//   encoding 1, nib: u8 (lut_s[base] << 5) | lut_q[qual] at out_reads
+//     (tab: hc_pack_dict's luts), u8 haps at out_haps;
+//   encoding 2, planes: i32 mask[base], omq[qual], q3[qual] planes end to
+//     end at out_reads (tab: the 768 i32 mask | omq | q3 tables), i32
+//     mask[base] haps at out_haps.
+// Haps come end to end in hap_flat, hap_lens long each, clipped to c_pad.
+// With pairs, the (2, total) i32 pair indices too: read-major per job,
+// jobs in order.  Returns 0; -1 when a read is longer than r_pad or the
+// rows do not fit nr_pad / nh_pad / total (nothing written).
+int32_t hc_pack_rows(const int64_t* jobs, int32_t n_jobs,
+                     const int64_t* read_lens, int32_t nr_pad, int32_t r_pad,
+                     const uint8_t* hap_flat, const int64_t* hap_lens,
+                     int32_t nh_pad, int32_t c_pad, int32_t encoding,
+                     const void* tab, void* out_reads, void* out_haps,
+                     int32_t* pairs, int64_t total) {
+  int64_t n_reads = 0, n_haps = 0, n_pairs = 0;
+  for (int32_t j = 0; j < n_jobs; ++j) {
+    n_reads += jobs[4 * j + 2];
+    n_haps += jobs[4 * j + 3];
+    n_pairs += jobs[4 * j + 2] * jobs[4 * j + 3];
+  }
+  if (n_reads > nr_pad || n_haps > nh_pad || (pairs && n_pairs != total))
+    return -1;
+  for (int64_t k = 0; k < n_reads; ++k)
+    if (read_lens[k] > r_pad) return -1;
+  const int64_t width = r_pad, nrr = int64_t(nr_pad) * r_pad;
+  const int64_t tail = nrr - n_reads * width;  // padding rows' elements
+
+  if (encoding == 2) {
+    const int32_t* mask = static_cast<const int32_t*>(tab);
+    const int32_t* omq = mask + 256;
+    const int32_t* q3 = mask + 512;
+    int32_t* m = static_cast<int32_t*>(out_reads);
+    pack_for_each_read(jobs, n_jobs, read_lens,
+                       [&](int64_t k, const uint8_t* s, const uint8_t* q,
+                           int64_t n) {
+                         pack_lookup_row(m + k * width, mask, s, n, width);
+                         pack_lookup_row(m + nrr + k * width, omq, q, n,
+                                         width);
+                         pack_lookup_row(m + 2 * nrr + k * width, q3, q, n,
+                                         width);
+                       });
+    std::fill(m + nrr - tail, m + nrr, mask[0]);
+    std::fill(m + 2 * nrr - tail, m + 2 * nrr, omq[0]);
+    std::fill(m + 3 * nrr - tail, m + 3 * nrr, q3[0]);
+    int32_t* h = static_cast<int32_t*>(out_haps);
+    const uint8_t* src = hap_flat;
+    for (int64_t k = 0; k < n_haps; ++k) {
+      pack_lookup_row(h + k * c_pad, mask, src,
+                      std::min<int64_t>(hap_lens[k], c_pad), c_pad);
+      src += hap_lens[k];
+    }
+    std::fill(h + n_haps * c_pad, h + int64_t(nh_pad) * c_pad, mask[0]);
+  } else {
+    uint8_t* out = static_cast<uint8_t*>(out_reads);
+    if (encoding == 1) {
+      const uint8_t* lut_s = static_cast<const uint8_t*>(tab);
+      const uint8_t* lut_q = lut_s + 256;
+      pack_for_each_read(jobs, n_jobs, read_lens,
+                         [&](int64_t k, const uint8_t* s, const uint8_t* q,
+                             int64_t n) {
+                           uint8_t* row = out + k * width;
+                           for (int64_t i = 0; i < n; ++i)
+                             row[i] = static_cast<uint8_t>(
+                                 (lut_s[s[i]] << 5) | lut_q[q[i]]);
+                           std::memset(row + n, 0,
+                                       static_cast<size_t>(width - n));
+                         });
+      std::memset(out + nrr - tail, 0, static_cast<size_t>(tail));
+    } else {
+      pack_for_each_read(jobs, n_jobs, read_lens,
+                         [&](int64_t k, const uint8_t* s, const uint8_t* q,
+                             int64_t n) {
+                           pack_copy_row(out + k * width, s, n, width);
+                           pack_copy_row(out + nrr + k * width, q, n, width);
+                         });
+      std::memset(out + nrr - tail, 0, static_cast<size_t>(tail));
+      std::memset(out + 2 * nrr - tail, 0, static_cast<size_t>(tail));
+    }
+    uint8_t* h = static_cast<uint8_t*>(out_haps);
+    const uint8_t* src = hap_flat;
+    for (int64_t k = 0; k < n_haps; ++k) {
+      pack_copy_row(h + k * c_pad, src,
+                    std::min<int64_t>(hap_lens[k], c_pad), c_pad);
+      src += hap_lens[k];
+    }
+    std::memset(h + n_haps * c_pad, 0,
+                static_cast<size_t>((nh_pad - n_haps) * c_pad));
+  }
+
+  if (pairs) {
+    int64_t at = 0;
+    int32_t rb = 0, hb = 0;
+    for (int32_t j = 0; j < n_jobs; ++j) {
+      const int32_t nr = static_cast<int32_t>(jobs[4 * j + 2]);
+      const int32_t nh = static_cast<int32_t>(jobs[4 * j + 3]);
+      for (int32_t r = 0; r < nr; ++r)
+        for (int32_t h = 0; h < nh; ++h, ++at) {
+          pairs[at] = rb + r;
+          pairs[total + at] = hb + h;
+        }
+      rb += nr;
+      hb += nh;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -32,10 +32,11 @@ import queue
 import sys
 import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..config import HCConfig
 from ..utils.logging import process_age_s as _process_age_s
 from ..utils.logging import span
@@ -303,11 +304,14 @@ class BackgroundRunner:
     libraries the configuration launches (ops/_kernels.py::libraries_for:
     the ppe or the striped library, and the genotyper's with --genotyper
     cuda), initialises the CUDA context and the device tables (the
-    TorchPairHMMRunner constructor), and starts the runner's prewarm, so
-    that those seconds run concurrently with the host's parse and
-    assembly.  The first submit/drain/run joins the build.  A build or
-    CUDA error is stored and raised at first use; a build still running
-    after cfg.device_timeout_s raises DeviceWedgedError there.
+    TorchPairHMMRunner constructor), loads the host library the runner's
+    pack writes through (libhcnative.so, built by g++ on a helper thread
+    beside the torch import and nvcc when missing), and starts the
+    runner's prewarm, so that those seconds run concurrently with the
+    host's parse and assembly.  The first submit/drain/run joins the
+    build.  A build or CUDA error is stored and raised at first use; a
+    build still running after cfg.device_timeout_s raises
+    DeviceWedgedError there.
 
     Only the configuration's libraries are built, as the reference
     compiles only the programs its run dispatches (its prewarm traces the
@@ -332,6 +336,13 @@ class BackgroundRunner:
             try:
                 t0 = time.perf_counter()
                 age0 = _process_age_s()
+                # the host library the pack writes through: g++ (a fresh
+                # checkout's only) beside the torch import and nvcc
+                host_lib: Dict[str, bool] = {}
+                host_thread = threading.Thread(
+                    target=lambda: host_lib.update(ok=native.available()),
+                    daemon=True, name="hc-build-native")
+                host_thread.start()
                 preloaded = "torch" in sys.modules
                 import torch  # noqa: F401 - the import this thread overlaps
 
@@ -360,6 +371,9 @@ class BackgroundRunner:
                     runner.init_profile["kernel_build_load_s"] = round(
                         kernels.seconds, 3)
                     runner.init_profile["kernel_cache"] = _kernels.cache_report()
+                with span("build.native"):
+                    host_thread.join()
+                runner._native = host_lib.get("ok", False)
                 self._runner = runner
                 if self._stop_requested:
                     runner.stop_prewarm()
@@ -458,7 +472,6 @@ class NativePairHMMRunner:
                 self._run_one(job)
 
     def _run_one(self, job: PairHMMJob) -> None:
-        from .. import native
         from .pairhmm_oracle import finalize_log10
 
         gop, gcp = self.cfg.gop_char, self.cfg.gcp_char

@@ -15,7 +15,12 @@ separately would drown in per-launch overhead.  ``TorchPairHMMRunner``:
    applied on the host (12 B per read base), or "packed", the raw bytes
    (2 B per read base) or, with cfg.packed_nib, nibble-dictionary bytes
    (1 B per read base) and a span table instead of the pair indices; the
-   striped kernel (cfg.pallas_algo "striped") ships raw bytes;
+   striped kernel (cfg.pallas_algo "striped") ships raw bytes.  One
+   native pass a group (native.pack_rows, the GIL released) writes the
+   rows straight from the jobs' flat buffers into the buffer in that
+   encoding; the numpy pack (``_unique_rows`` and the ``_pack_*``
+   writers), which ships the same bytes, runs when the library cannot
+   load;
 4. on the stream: one H2D copy, then one ppe launch per chunk that reads
    the group's unique rows itself, in every encoding (lookups and, for
    nib, the pair expansion included: ops/pairhmm_front.py) — or, with
@@ -60,6 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..config import HCConfig
 from ..utils.logging import process_age_s as _process_age_s
 from ..utils.logging import span
@@ -176,6 +182,33 @@ class _Unique:
                 np.arange(rb, rb + nr, dtype=np.int32), nh)
             out[total + start : total + start + n] = np.tile(
                 np.arange(hb, hb + nh, dtype=np.int32), nr)
+
+
+@dataclasses.dataclass
+class _Sources:
+    """A group's unique rows where its jobs hold them: what the native
+    pack (native.pack_rows) reads to write any encoding's rows straight
+    into the host buffer, and the same lengths and spans as ``_Unique``."""
+
+    dims: Tuple[int, int, int, int]  # nr_pad, nh_pad, r_pad, c_pad
+    jobs: np.ndarray  # (n_jobs, 4) i64: bases address, quals address,
+    # reads, haps (the addresses point into ``keep``)
+    row_lens: np.ndarray  # (n_reads,) i64
+    hap_flat: np.ndarray  # u8, the haps end to end, unclipped
+    hap_row_lens: np.ndarray  # (n_haps,) i64, unclipped
+    read_lens: np.ndarray  # (nr_pad,) i32, padding rows 1
+    hap_lens: np.ndarray  # (nh_pad,) i32, clipped to c_pad
+    hap_init_y: np.ndarray  # (nh_pad,) f32
+    spans: List[Tuple[int, int, int, int]]  # (job, start, nr, nh)
+    bases: List[Tuple[int, int]]  # (first unique read, first unique hap)
+    total: int
+    keep: List[np.ndarray]  # the arrays the job addresses point into
+
+    lens_into = _Unique.lens_into
+
+
+_NO_BYTES = np.zeros(0, np.uint8)
+_NO_LENS = np.zeros(0, np.int64)
 
 
 @dataclasses.dataclass
@@ -350,6 +383,7 @@ class TorchPairHMMRunner:
         ppe_tab = np.concatenate(
             [self._mask_tab, self._omq_bits_tab, self._q3_bits_tab]
         ).astype(np.int32)
+        self._host_tab = ppe_tab  # the native pack's planes lookups
         per_device: Dict[torch.device, torch.Tensor] = {}
         self._slots: List[_Slot] = []
         for index, dev in enumerate(self.devices):
@@ -383,6 +417,13 @@ class TorchPairHMMRunner:
         self.bucket_counts: Dict[Tuple[int, int], int] = {}
         # stage times in ms (STAGES)
         self.stage_ms: Dict[str, List[float]] = {s: [] for s in STAGES}
+        # whether the pack writes through the native library (None until
+        # known: BackgroundRunner loads it on its build thread, else the
+        # first pack does), and the groups packed per encoding by each
+        # route, {"planes" | "packed" | "packednib": {"native": n,
+        # "numpy": n}}, surfaced as stage_medians' pack_profile
+        self._native: Optional[bool] = None
+        self.pack_counts: Dict[str, Dict[str, int]] = {}
 
     # ------------------------------------------------------------------
     def run(self, jobs: Sequence[PairHMMJob]) -> None:
@@ -609,6 +650,7 @@ class TorchPairHMMRunner:
             s: round(sum(v), 3) for s, v in self.stage_ms.items() if v
         }
         out["groups"] = len(self.stage_ms["pack"])
+        out["pack_profile"] = {p: dict(n) for p, n in self.pack_counts.items()}
         out["device"] = (
             torch.cuda.get_device_name(self.device)
             if self.device.type == "cuda"
@@ -714,8 +756,13 @@ class TorchPairHMMRunner:
             )
             for g in group
         ) if group else 1
-        max_r = max(max_r, 1)
         max_c = max((len(h) for g in group for h in jobs[g].haps), default=1)
+        return self._pads(max_r, max_c)
+
+    def _pads(self, max_r: int, max_c: int) -> Tuple[int, int]:
+        """(r_pad, c_pad) of a group whose longest read and hap are max_r
+        and max_c long."""
+        max_r = max(max_r, 1)
         r_pad = next(
             (b for b in self.cfg.read_pad_buckets if max_r <= b),
             self._round_rows(max_r),
@@ -775,15 +822,23 @@ class TorchPairHMMRunner:
             self._sync()
         with span("runner.pack") as pack:
             cpu0 = time.thread_time_ns()
-            r_pad, c_pad = self._pads_for_group(jobs, group)
+            native = self.native_ready()
+            with span("runner.pack.unique_rows") as unique:
+                # the native route sizes the pads from the lengths it
+                # gathers anyway
+                u = (self._row_sources(jobs, group) if native else
+                     self._unique_rows(jobs, group,
+                                       *self._pads_for_group(jobs, group)))
+            r_pad, c_pad = u.dims[2:]
             self.bucket_counts[r_pad, c_pad] = (
                 self.bucket_counts.get((r_pad, c_pad), 0) + 1)
-            with span("runner.pack.unique_rows") as unique:
-                u = self._unique_rows(jobs, group, r_pad, c_pad)
             n_chunks = -(-u.total // self.pair_budget)
             with span("runner.pack.encode") as encode:
                 payload = self._encode(u, path, n_chunks)
             cpu_ms = (time.thread_time_ns() - cpu0) / 1e6
+        counts = self.pack_counts.setdefault(payload.path,
+                                             {"native": 0, "numpy": 0})
+        counts["native" if native else "numpy"] += 1
         payload.stage_ms = {"pack": pack.seconds * 1e3,
                             "unique_rows": unique.seconds * 1e3,
                             "encode": encode.seconds * 1e3,
@@ -801,13 +856,24 @@ class TorchPairHMMRunner:
                 path, (time.perf_counter() - pack.start) / max(u.total, 1))
         return entry
 
-    def _encode(self, u: _Unique, path: str, n_chunks: int) -> _Payload:
-        """The group's unique rows in ``path``'s encoding, in one host
-        buffer; a child span names the encoding that ran (nib's dictionary
-        pass, ``_nib_encode``, is its parent's own time)."""
+    def native_ready(self) -> bool:
+        """Whether the pack writes through the native library: loaded (and
+        built when missing) at the first call, numpy when it cannot be."""
+        if self._native is None:
+            self._native = native.available()
+        return self._native
+
+    def _encode(self, u, path: str, n_chunks: int) -> _Payload:
+        """The group's unique rows (``_Unique``, or ``_Sources`` for the
+        native pack) in ``path``'s encoding, in one host buffer; a child
+        span names the encoding that ran (nib's dictionary pass,
+        ``_nib_encode`` or ``_nib_dictionary``, is its parent's own
+        time)."""
         if path == "packed":
-            nib = (self._nib_encode(u.read_u8, u.qual_u8)
-                   if self.cfg.packed_nib and n_chunks == 1 else None)
+            nib = None
+            if self.cfg.packed_nib and n_chunks == 1:
+                nib = (self._nib_dictionary(u) if isinstance(u, _Sources)
+                       else self._nib_encode(u.read_u8, u.qual_u8))
             # nib when the group's alphabets fit; otherwise (and for a
             # group of several chunks) raw packed, counted as "packed"
             if nib is not None:
@@ -821,7 +887,8 @@ class TorchPairHMMRunner:
 
     def _unique_rows(self, jobs, group, r_pad, c_pad) -> _Unique:
         """The group's unique reads and haps as 0-padded byte rows, their
-        lengths, INITIAL / haplen, and the per-job spans."""
+        lengths, INITIAL / haplen, and the per-job spans: the numpy pack's
+        rows (``_row_sources`` is the native pack's)."""
         n_reads = sum(len(jobs[g].reads) for g in group)
         n_haps = sum(len(jobs[g].haps) for g in group)
         nr_pad = _bucket(n_reads, self.READ_BUCKETS)
@@ -906,40 +973,131 @@ class TorchPairHMMRunner:
         )
         return np.repeat(starts, lens) + within
 
-    def _pack_planes(self, u: _Unique) -> _Payload:
-        """[planes (i32, _build_planes) | pairs (2, total) i32]."""
+    def _row_sources(self, jobs, group, r_pad=None, c_pad=None) -> _Sources:
+        """The group's unique reads and haps where its jobs hold them, for
+        the native pack: per job the addresses of its read bases and
+        qualities (a columnar ReadPairs' own flat buffers; a tuple-list
+        job's reads joined), every read's length, the haps end to end;
+        and, as ``_unique_rows``, the lengths, INITIAL / haplen and the
+        per-job spans.  The pads default to ``_pads_for_group``'s."""
+        table: List[int] = []
+        lens: List[np.ndarray] = []
+        haps: List[np.ndarray] = []
+        keep: List[np.ndarray] = []
+        for g in group:
+            r = jobs[g].reads
+            first = 0
+            if hasattr(r, "flat_seq"):
+                seq, qual, n = r.flat_seq, r.flat_qual, r.lengths
+                first, end = int(r.off[0]), int(r.off[-1])
+                if end > min(seq.size, qual.size):
+                    raise ValueError(f"job {g}: its reads' offsets run past "
+                                     "its flat bases or qualities")
+            elif len(r):
+                seq = np.concatenate([b for b, _ in r])
+                qual = np.concatenate([q for _, q in r])
+                n = np.fromiter((len(b) for b, _ in r), np.int64, len(r))
+                if qual.size != seq.size:
+                    raise ValueError(f"job {g}: its reads' bases and "
+                                     "qualities differ in length")
+            else:
+                seq, qual, n = _NO_BYTES, _NO_BYTES, _NO_LENS
+            seq = np.ascontiguousarray(seq, dtype=np.uint8)
+            qual = np.ascontiguousarray(qual, dtype=np.uint8)
+            keep += (seq, qual)
+            table += (seq.ctypes.data + first, qual.ctypes.data + first,
+                      len(r), len(jobs[g].haps))
+            lens.append(n)
+            haps.extend(jobs[g].haps)
+        per_job = np.array(table, dtype=np.int64).reshape(-1, 4)
+        nr, nh = per_job[:, 2], per_job[:, 3]
+        nr_pad = _bucket(int(nr.sum()), self.READ_BUCKETS)
+        nh_pad = _bucket(int(nh.sum()), self.HAP_BUCKETS)
+        row_lens = (np.concatenate(lens) if lens else _NO_LENS).astype(
+            np.int64, copy=False)
+        hap_row_lens = np.fromiter((len(h) for h in haps), dtype=np.int64,
+                                   count=len(haps))
+        hap_flat = (np.concatenate(haps) if haps else _NO_BYTES).astype(
+            np.uint8, copy=False)
+        if r_pad is None:
+            r_pad, c_pad = self._pads(int(row_lens.max(initial=0)),
+                                      int(hap_row_lens.max(initial=1)))
+        read_lens = np.ones(nr_pad, dtype=np.int32)
+        read_lens[: row_lens.size] = row_lens
+        hap_lens = np.ones(nh_pad, dtype=np.int32)
+        hap_lens[: hap_row_lens.size] = np.minimum(hap_row_lens, c_pad)
+        hap_init_y = (
+            INITIAL_CONSTANT_F32 / hap_lens.astype(np.float32)
+        ).astype(np.float32)
+        pairs = nr * nh
+        starts = np.cumsum(pairs) - pairs
+        spans = list(zip(group, starts.tolist(), nr.tolist(), nh.tolist()))
+        bases = list(zip((np.cumsum(nr) - nr).tolist(),
+                         (np.cumsum(nh) - nh).tolist()))
+        return _Sources((nr_pad, nh_pad, r_pad, c_pad), per_job, row_lens,
+                        hap_flat, hap_row_lens, read_lens, hap_lens,
+                        hap_init_y, spans, bases, int(pairs.sum()), keep)
+
+    def _write_rows(self, s: _Sources, encoding: str, out_reads, out_haps,
+                    pairs=None, tab=None) -> None:
+        """The native pack's one pass: ``s``'s padded rows in ``encoding``
+        (native.PACK_ENCODINGS) into the host buffer's arrays."""
+        nr_pad, nh_pad, r_pad, c_pad = s.dims
+        native.pack_rows(s.jobs, s.row_lens, nr_pad, r_pad, s.hap_flat,
+                         s.hap_row_lens, nh_pad, c_pad, encoding, tab,
+                         out_reads, out_haps, pairs)
+
+    def _pack_planes(self, u) -> _Payload:
+        """[planes (i32, _build_planes' layout) | pairs (2, total) i32] of
+        ``_Unique`` or ``_Sources`` rows."""
         nr_pad, nh_pad, r_pad, c_pad = u.dims
         n_planes = nr_pad + 2 * nh_pad + 3 * nr_pad * r_pad + nh_pad * c_pad
         buf = _HostBuffer([(np.int32, n_planes), (np.int32, 2 * u.total)],
                           self._pinned)
-        self._build_planes(u.read_u8, u.qual_u8, u.hap_u8, u.read_lens,
-                           u.hap_lens, u.hap_init_y, *u.dims,
-                           out=buf.array(0))
-        u.pairs_into(buf.array(1))
+        if isinstance(u, _Sources):
+            planes = buf.array(0)
+            head = nr_pad + 2 * nh_pad
+            nrr3 = head + 3 * nr_pad * r_pad
+            u.lens_into(planes[:head])
+            self._write_rows(u, "planes", planes[head:nrr3], planes[nrr3:],
+                             buf.array(1), self._host_tab)
+        else:
+            self._build_planes(u.read_u8, u.qual_u8, u.hap_u8, u.read_lens,
+                               u.hap_lens, u.hap_init_y, *u.dims,
+                               out=buf.array(0))
+            u.pairs_into(buf.array(1))
         return _Payload("planes", u.dims, buf, u.spans, u.total)
 
-    def _pack_bytes(self, u: _Unique) -> _Payload:
+    def _pack_bytes(self, u) -> _Payload:
         """Raw packed (and the striped path's shipping): [reads | quals |
-        haps] u8, [rlens | hlens | init_y bits] i32, pairs (2, total) i32."""
+        haps] u8, [rlens | hlens | init_y bits] i32, pairs (2, total) i32,
+        of ``_Unique`` or ``_Sources`` rows."""
         nr_pad, nh_pad, r_pad, c_pad = u.dims
         nrr = nr_pad * r_pad
         buf = _HostBuffer([(np.uint8, 2 * nrr + nh_pad * c_pad),
                            (np.int32, nr_pad + 2 * nh_pad),
                            (np.int32, 2 * u.total)], self._pinned)
         u8 = buf.array(0)
-        u8[:nrr] = u.read_u8
-        u8[nrr : 2 * nrr] = u.qual_u8
-        u8[2 * nrr :] = u.hap_u8
+        if isinstance(u, _Sources):
+            self._write_rows(u, "bytes", u8[: 2 * nrr], u8[2 * nrr :],
+                             buf.array(2))
+        else:
+            u8[:nrr] = u.read_u8
+            u8[nrr : 2 * nrr] = u.qual_u8
+            u8[2 * nrr :] = u.hap_u8
+            u.pairs_into(buf.array(2))
         u.lens_into(buf.array(1))
-        u.pairs_into(buf.array(2))
         return _Payload("packed", u.dims, buf, u.spans, u.total)
 
-    def _pack_nib(self, u: _Unique, nib_u8: np.ndarray,
-                  minitab: np.ndarray) -> _Payload:
+    def _pack_nib(self, u, nib: np.ndarray, minitab: np.ndarray) -> _Payload:
         """Nib: [nib reads | haps] u8, [rlens | hlens | init_y bits] i32,
         the 72-entry mini-table, the span table [read_base, hap_base, nr,
         nh] padded to a power of two of at least 8 rows (zero rows), and
-        its exclusive starts and total (pairhmm_front.nib_starts)."""
+        its exclusive starts and total (pairhmm_front.nib_starts).
+        ``nib``: the group's nib bytes (``_Unique`` rows, from
+        ``_nib_encode``) or the dictionaries' byte -> index tables
+        (``_Sources``, from ``_nib_dictionary``: the native pass writes
+        the bytes)."""
         from .pairhmm_front import nib_starts
 
         nr_pad, nh_pad, r_pad, c_pad = u.dims
@@ -952,8 +1110,11 @@ class TorchPairHMMRunner:
                            (np.int32, 4 * n_spans), (np.int32, n_spans + 1)],
                           self._pinned)
         u8 = buf.array(0)
-        u8[:nrr] = nib_u8
-        u8[nrr:] = u.hap_u8
+        if isinstance(u, _Sources):
+            self._write_rows(u, "nib", u8[:nrr], u8[nrr:], tab=nib)
+        else:
+            u8[:nrr] = nib
+            u8[nrr:] = u.hap_u8
         u.lens_into(buf.array(1))
         buf.array(2)[:] = minitab
         table = buf.array(3).reshape(n_spans, 4)
@@ -985,11 +1146,29 @@ class TorchPairHMMRunner:
         lut_q = np.zeros(256, np.uint8)
         lut_q[qual_vals] = np.arange(qual_vals.size, dtype=np.uint8)
         nib = (lut_s[read_u8] << np.uint8(5)) | lut_q[qual_u8]
+        return nib, self._minitab(seq_vals, qual_vals)
+
+    def _nib_dictionary(self, s: _Sources):
+        """``_nib_encode``'s dictionaries from the native histogram pass
+        over the group's flat read bytes, or None when they overflow.
+        Returns ((512,) u8 byte -> index tables, seq then qual, for the
+        native pass to write the nib bytes with; (72,) i32 mini-table)."""
+        dicts = np.empty(42, np.int32)
+        luts = np.empty(512, np.uint8)
+        if not native.pack_dict(s.jobs, s.row_lens, dicts, luts):
+            return None
+        n_seq, n_qual = int(dicts[0]), int(dicts[1])
+        return luts, self._minitab(dicts[2 : 2 + n_seq],
+                                   dicts[10 : 10 + n_qual])
+
+    def _minitab(self, seq_vals, qual_vals) -> np.ndarray:
+        """The 72-entry nib mini-table: mask of each seq value, omq and q3
+        bits of each qual value."""
         minitab = np.zeros(72, np.int32)
         minitab[: seq_vals.size] = self._mask_tab[seq_vals]
         minitab[8 : 8 + qual_vals.size] = self._omq_bits_tab[qual_vals]
         minitab[40 : 40 + qual_vals.size] = self._q3_bits_tab[qual_vals]
-        return nib, minitab
+        return minitab
 
     def _launch(self, path: str, payloads: List[_Payload]) -> _Entry:
         """k single-chunk groups of one path and one (r_pad, c_pad): one

@@ -160,12 +160,12 @@ class TestWedge:
         drain as itself, not as a wedge, and the runner stays usable."""
         cfg = dataclasses.replace(TINY_CFG, device_timeout_s=0.3)
         runner = TorchPairHMMRunner(cfg, device="cpu", pair_budget=256)
-        pack = runner._unique_rows
+        pack = runner._encode
 
         def failing_pack(*args):
             raise exc
 
-        runner._unique_rows = failing_pack
+        runner._encode = failing_pack
         jobs, _ = jobs_and_expected()
         handle = runner.submit(jobs)
         with pytest.raises(type(exc), match=str(exc)) as info:
@@ -173,7 +173,7 @@ class TestWedge:
         assert not isinstance(info.value, DeviceWedgedError)
         assert not runner._wedged
         assert all(job.result is None for job in jobs)
-        runner._unique_rows = pack
+        runner._encode = pack
         jobs2, expected2 = jobs_and_expected(seed=12)
         runner.drain([runner.submit(jobs2)])
         assert_results(jobs2, expected2)
@@ -184,14 +184,14 @@ def test_submit_returns_while_pack_is_blocked(release):
     the (monkeypatched) pack is still blocked, and drain collects."""
     runner = TorchPairHMMRunner(TINY_CFG, device="cpu", pair_budget=256)
     entered = threading.Event()
-    pack = runner._unique_rows
+    pack = runner._encode
 
     def blocked_pack(*args):
         entered.set()
         release.wait(60)
         return pack(*args)
 
-    runner._unique_rows = blocked_pack
+    runner._encode = blocked_pack
     jobs, expected = jobs_and_expected()
     t0 = time.perf_counter()
     handle = runner.submit(jobs)
