@@ -21,6 +21,9 @@ calibration.  The window starts at the first submit after that.  After
 the window closes at the last drain.  Every job's result is reset before
 it is submitted; the runner caches nothing by content.
 
+Around the window the process is read on its host (``host.py``: each
+thread's CPU seconds and last CPU, load, clock, switches), and the window's
+rate is kept by tenths, so that a slow run shows where it lost its time.
 After the window: the device's peak is read, the runner is let go, and
 the check compares every pair of a sample of the window's regions (drawn
 from the seed, the region with the most true cells always in it) with the
@@ -42,9 +45,12 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from hcbench import gen, reference, roofline, trace
+from hcbench import gen, host, reference, roofline, trace
 
-STAGES = ("pack", "finalize")  # the runner's host-clock stages read here
+# the runner's host-clock stages recorded here (``pack`` and ``finalize``
+# are read by metrics; the pack's parts and its CPU time show where a slow
+# run lost its time)
+STAGES = ("pack", "unique_rows", "encode", "pack_cpu", "launch", "finalize")
 
 
 def open_runner(devices: Sequence[str]):
@@ -170,8 +176,21 @@ def _usage() -> Dict[str, float]:
     return {"user_s": ru.ru_utime, "sys_s": ru.ru_stime}
 
 
+def _rate_by_tenth(stream: Stream, work, t0: float, t1: float):
+    """Gcells/s drained in each tenth of the window: drains are in submit
+    order, each of ``per_submit`` jobs."""
+    cells = [0.0] * 10
+    drains = [b for name, _a, b in stream.spans if name == "drain"]
+    for k, end in enumerate(drains):
+        idx = stream.submitted[k * stream.per_submit:
+                               (k + 1) * stream.per_submit]
+        tenth = min(9, int(10 * (end - t0) / (t1 - t0)))
+        cells[tenth] += sum(work[i]["cells"] for i in idx)
+    return [c / ((t1 - t0) / 10) / 1e9 for c in cells]
+
+
 def _stage_sums(runner, before: Dict[str, int]) -> Dict[str, float]:
-    return {s: float(sum(runner.stage_ms[s][before[s]:])) for s in STAGES}
+    return {s: float(sum(runner.stage_ms[s][n:])) for s, n in before.items()}
 
 
 def _delta(now: Dict, before: Dict) -> Dict[str, int]:
@@ -202,18 +221,21 @@ def run(config: Dict, traffic: Dict, seed: int, seconds: float,
     for job in jobs:
         job.result = None
     stream.reset()
-    before = {s: len(runner.stage_ms[s]) for s in STAGES}
+    before = {s: len(runner.stage_ms[s]) for s in STAGES
+              if s in runner.stage_ms}
     dispatch0 = dict(runner.dispatch_counts)
     buckets0 = dict(runner.bucket_counts)
     profiler = (torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         *([torch.profiler.ProfilerActivity.CUDA] if on_card else [])])
         if traced else contextlib.nullcontext())
+    host0 = host.snapshot()
     usage0 = _usage()
     with profiler:
         with torch.profiler.record_function(trace.SPAN_PREFIX + "window"):
             t0, t1 = stream.run(seconds=seconds)
     usage = {k: v - usage0[k] for k, v in _usage().items()}
+    host_window = host.window(host0, host.snapshot())
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     reduced = None
     if traced:
@@ -239,6 +261,8 @@ def run(config: Dict, traffic: Dict, seed: int, seconds: float,
         "program": {
             "setup_parts": parts,
             "window_usage": usage,
+            "host": {**host_window, "pool_s": parts["pool_s"]},
+            "rate_by_tenth": _rate_by_tenth(stream, work, t0, t1),
             "dispatch": _delta(runner.dispatch_counts, dispatch0),
             "buckets": _delta(runner.bucket_counts, buckets0),
             "init_profile": {k: v for k, v in runner.init_profile.items()

@@ -18,6 +18,10 @@ The last line of standard output is one JSON object: ``correct``,
 ``checks``, each number compared beside its limit, which are also the
 last lines on standard error.
 
+Before ``import torch`` the process is bound to the CPUs of its cards'
+NUMA node where sysfs names one (``host.py``); ``program.host`` records
+where the run ran and what its threads did in the window.
+
 Exits 2 and prints no result when no card is visible or fewer than the
 cell's chips, and 3 when ``jax``, ``jaxlib``, ``flax`` or the JAX package
 (``gatk_hc_tpu``, whose name the port's begins with) is loaded once the
@@ -37,6 +41,8 @@ import os
 import sys
 import time
 from typing import Dict, Optional
+
+from hcbench import host
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(ROOT, "hcbench")
@@ -139,6 +145,10 @@ def main(argv=None) -> int:
         return 2
     cell = cells[args.workload]
     set_environment()
+    t_bind = time.perf_counter()
+    where = host.bind(host.place(host.card_bus_ids(cell["chips"]),
+                                 os.sched_getaffinity(0)))
+    bind_s = time.perf_counter() - t_bind
     age_at_import = process_age_s()
     t_import = time.perf_counter()
     import torch
@@ -190,7 +200,9 @@ def main(argv=None) -> int:
             "idle_gaps": record["trace"]["idle_gaps"],
         }
     record["program"]["setup_parts"].update(
-        import_torch_s=import_s, process_age_at_import_s=age_at_import)
+        import_torch_s=import_s, process_age_at_import_s=age_at_import,
+        bind_s=bind_s)
+    record["program"]["host"] = {**where, **record["program"]["host"]}
     result["program"] = {
         **record["program"],
         "spans_ms": record["spans_ms"],

@@ -32,6 +32,11 @@ def test_a_short_run(workload, traced):
     spec = run.load_spec(ROOT)
     want = {m["name"] for m in run.metrics_of(spec, workload, bool(traced))}
     assert set(result["metrics"]) == want
+    where = result["program"]["host"]
+    assert {"bus_ids", "numa_nodes", "local_cpulist", "affinity",
+            "bound_cpus", "loadavg", "cpu_mhz", "voluntary_cs",
+            "involuntary_cs", "threads", "pool_s"} <= set(where)
+    assert {"name", "cpu", "cpu_s"} <= set(where["threads"][0])
     if traced:
         assert 0 < result["device"]["busy_s"] < result["device"]["window_s"]
         assert result["metrics"]["pairhmm_roofline"]["value"] <= 100
