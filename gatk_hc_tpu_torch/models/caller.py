@@ -31,7 +31,7 @@ from ..config import DEFAULT_CONFIG, HCConfig
 from ..io.fasta import read_all_fasta, read_fasta
 from ..io.sam import SAMRecord, load_reads_by_contig, load_reads_by_start, read_sam
 from ..utils.interval import Interval
-from ..utils.logging import NULL_LOGGER, HCLogger, RunCounters, StageTimers
+from ..utils.logging import NULL_LOGGER, HCLogger, RunCounters, StageTimers, span
 from .assembler import PathExplosionError
 from .downsampler import downsample_window
 from .genotyper import assign_genotype_likelihoods
@@ -246,7 +246,13 @@ def call_batched(
 
     ``device`` is where the runner this builds for the "cuda", "diag" or
     "shardmap" engine and the "cuda" genotyper run ("cuda" or "cpu"); it is not a
-    config key."""
+    config key.
+
+    Each ``timers`` stage is also a span: ``caller.parse``, ``caller.io``,
+    ``caller.pairhmm`` (this thread blocked in the runner's submit, drain
+    or run), ``caller.genotype`` (on the "genotype" thread where it has
+    one) and ``caller.assemble``, one a region on the host thread that
+    assembles it."""
     from ..ops.engines import make_assemble_fn
     from ..ops.pairhmm_oracle import normalize_and_filter
     from ..ops.runner import PairHMMJob
@@ -372,27 +378,27 @@ def call_batched(
         Returns (status, payload, prep_seconds, assemble_seconds).  Reads
         the data source through ``data`` so contig streaming can swap the
         store between contigs (all in-flight workers are drained first)."""
-        t0 = time.perf_counter()
         fused_fn = data["fused"]
         if fused_fn is not None:
             window_ref = contig.seq[padded.begin : padded.end]
             try:
-                reads, n_downsampled, haplotypes = fused_fn(
-                    contig.name, padded.begin, padded.end, window_ref
-                )
+                with span("caller.assemble") as asm:
+                    reads, n_downsampled, haplotypes = fused_fn(
+                        contig.name, padded.begin, padded.end, window_ref
+                    )
             except PathExplosionError as exc:
                 # pathological window (assembly path explosion): skip the
                 # region instead of aborting a whole-genome run.  Other
                 # native errors are internal bugs and propagate.
-                return "failed", str(exc), time.perf_counter() - t0, 0.0
-            t1 = time.perf_counter()
+                return "failed", str(exc), asm.seconds, 0.0
             if n_downsampled == 0:
-                return "ignored", None, t1 - t0, 0.0
+                return "ignored", None, asm.seconds, 0.0
             if not reads:
-                return "empty", None, t1 - t0, 0.0
+                return "empty", None, asm.seconds, 0.0
             payload = (reads, haplotypes, window_ref, build_job(reads, haplotypes))
             # one fused call: attribute its time to the assemble stage
-            return "ok", payload, 0.0, t1 - t0
+            return "ok", payload, 0.0, asm.seconds
+        t0 = time.perf_counter()
         if use_columnar:
             reads, n_downsampled = data["store"].prepare_window(
                 contig.name, padded.begin, padded.end, cfg
@@ -412,11 +418,12 @@ def call_batched(
             return "empty", None, t1 - t0, 0.0
         window_ref = contig.seq[padded.begin : padded.end]
         try:
-            haplotypes = assemble_fn(reads, window_ref, cfg)
+            with span("caller.assemble") as asm:
+                haplotypes = assemble_fn(reads, window_ref, cfg)
         except PathExplosionError as exc:
-            return "failed", str(exc), t1 - t0, time.perf_counter() - t1
+            return "failed", str(exc), t1 - t0, asm.seconds
         payload = (reads, haplotypes, window_ref, build_job(reads, haplotypes))
-        return "ok", payload, t1 - t0, time.perf_counter() - t1
+        return "ok", payload, t1 - t0, asm.seconds
 
     pending = []  # (result, reads, haplotypes, window_ref, job)
     unsubmitted: List = []
@@ -424,8 +431,14 @@ def call_batched(
     can_overlap = hasattr(runner, "submit") and hasattr(runner, "drain")
     results: List[RegionResult] = []
 
-    def consume(result, origin, padded, outcome):
+    def submit_unsubmitted():
         nonlocal unsubmitted
+        jobs = [e[4] for e in unsubmitted]
+        with timers.stage("pairhmm"):
+            submitted_batches.append((runner.submit(jobs), unsubmitted))
+        unsubmitted = []
+
+    def consume(result, origin, padded, outcome):
         status, payload, dt_prep, dt_asm = outcome
         timers.add("downsample_clip", dt_prep)
         timers.add("assemble", dt_asm)
@@ -469,11 +482,7 @@ def call_batched(
         # the host works the next regions (runners without submit/drain,
         # e.g. test shims, fall back to one run() at the end)
         if can_overlap and len(unsubmitted) >= SUBMIT_CHUNK_REGIONS:
-            with timers.stage("pairhmm"):
-                submitted_batches.append(
-                    (runner.submit([e[4] for e in unsubmitted]), unsubmitted)
-                )
-            unsubmitted = []
+            submit_unsubmitted()
             # bound in-flight memory: with > MAX_INFLIGHT_BATCHES chunks
             # queued, the oldest has surely finished on device — drain,
             # genotype, and FREE it now, overlapped with assembly of the
@@ -555,9 +564,9 @@ def call_batched(
             return
 
         def work():
-            t0 = time.perf_counter()
-            genotype_entries(entries)
-            timers.add("genotype", time.perf_counter() - t0)
+            with span("caller.genotype") as step:
+                genotype_entries(entries)
+            timers.add("genotype", step.seconds)
             entries.clear()
 
         genotype_futs.append(genotype_pool.submit(work))
@@ -663,10 +672,7 @@ def call_batched(
     try:
         if can_overlap:
             if unsubmitted:
-                with timers.stage("pairhmm"):
-                    submitted_batches.append(
-                        (runner.submit([e[4] for e in unsubmitted]), unsubmitted)
-                    )
+                submit_unsubmitted()
             while submitted_batches:
                 token, entries = submitted_batches.pop(0)
                 with timers.stage("pairhmm"):

@@ -7,7 +7,8 @@ profiling hooks (PairWiseSW.h PERF_DEBUG).  Here:
 * ``HCLogger`` reproduces those progress lines under ``verbosity >= 1``
   (quiet by default);
 * ``StageTimers`` accumulates wall-clock per pipeline stage (parse,
-  downsample+clip, assemble, pairhmm, genotype, io);
+  downsample+clip, assemble, pairhmm, genotype, io); a stage it times is
+  also the span ``caller.<stage>``;
 * ``RunCounters`` tracks regions/reads/pairs/cell-updates/variants and
   renders a one-line JSON summary (the CLI --stats source of truth);
 * ``span`` times one step of the run on the host clock and, while a
@@ -74,13 +75,14 @@ class StageTimers:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        start = time.perf_counter()
+        """Times the block as the span ``caller.<name>`` and adds its
+        seconds to the stage's total."""
+        step = span("caller." + name)
         try:
-            yield
+            with step:
+                yield
         finally:
-            self.totals[name] = self.totals.get(name, 0.0) + (
-                time.perf_counter() - start
-            )
+            self.totals[name] = self.totals.get(name, 0.0) + step.seconds
 
     def add(self, name: str, seconds: float) -> None:
         """Accumulate a duration measured elsewhere (e.g. inside a host
